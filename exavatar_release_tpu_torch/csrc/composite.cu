@@ -1,0 +1,158 @@
+// Tile compositing kernels for Hopper (sm_90a): the forward of the 3DGS
+// rasterizer's front-to-back alpha blend, one thread per pixel.
+//
+// Replaces two Pallas TPU kernels of
+// exavatar_release_tpu/ops/rasterizer/pallas_kernels.py:
+//   composite_tiles_fwd_cm   (dense (T, 12, K) depth-sorted windows)
+//   composite_pairs_fwd_rg   (ragged chunk-aligned (12, Pa) pair list)
+// Both compute renderCUDA's rules, as jax_ref.py states them:
+//   q = log_op - 0.5 (A dx^2 + C dy^2) - B dx dy   (direct conic form)
+//   skip when q > log_op or exp(q) < 1/255;  alpha = min(0.99, exp(q))
+//   test_T = T (1 - alpha); test_T < 1e-4 ends the pixel, excluding the
+//   Gaussian that triggers it;  C += col alpha T;  T = test_T
+//   out = [rgb + bg T, depth, 1 - T]
+// T is a sequential f32 product, as in the plain PyTorch twin
+// (ops/rasterizer/kernels.py). The TPU kernels' log-space triangular-matmul
+// prefix was a device for the TPU's matrix unit and is not carried over.
+//
+// Design (renderCUDA's): a block owns 256 pixels of one tile. It stages 256
+// rows at a time in shared memory (10 used channels x 256 floats = 10 KB),
+// each channel a coalesced load, and every thread walks the batch in depth
+// order. __syncthreads_count ends the block once all its pixels are done.
+// The TPU kernel carried acc/T/done across sequential grid steps over chunk
+// slots (the ragged kernel's output-block revisit); blocks here run in no
+// order, so that carry is the loop over the tile's slot range inside one
+// block.
+//
+// Bound: the work is ~13 f32 operations (one exp) per (pixel, Gaussian)
+// visit before termination, against 40 bytes per live row and 20 per output
+// pixel, so on this card the kernels are bound by operations (PERF.md holds
+// the bound and the measured times at the avatar's shapes). The design
+// keeps rows in shared memory and state in registers: device memory sees
+// each live row once per 256-pixel block and each output once.
+//
+// Build with -fmad=false and without fast math: the 1/255 alpha floor and
+// the 1e-4 termination threshold turn last-bit differences into skipped or
+// kept Gaussians, so the kernel rounds every operation as the plain PyTorch
+// version does.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlock = 256;
+// The plain version compares float32 tensors against these Python doubles,
+// which PyTorch rounds to float32: round the double the same way here.
+constexpr float kAlphaMin = (float)(1.0 / 255.0);
+constexpr float kAlphaMax = (float)0.99;
+constexpr float kTermEps = (float)1e-4;
+
+// Composite rows [begin, begin + n) of a channel-major row table (channel c
+// of row r at rows[c * stride + r]) into the pixels of one tile. The block's
+// threads own pixels blockIdx.y * kBlock + threadIdx.x of that tile.
+__device__ void composite_range(const float* __restrict__ rows, long long stride,
+                                long long begin, int n, float ox, float oy,
+                                int th, int tw, const float* __restrict__ bg,
+                                float* __restrict__ out_tile) {
+  __shared__ float s[10][kBlock];
+  const int P = th * tw;
+  const int i = blockIdx.y * kBlock + threadIdx.x;
+  const bool inside = i < P;
+  const float px = (float)(i % tw) + ox;
+  const float py = (float)(i / tw) + oy;
+
+  bool done = !inside;
+  float T = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, c3 = 0.0f;
+  for (int b = 0; b < n; b += kBlock) {
+    // barrier before overwriting the batch; also the block's exit test
+    if (__syncthreads_count(done) == kBlock) break;
+    const int k = b + threadIdx.x;
+    if (k < n) {
+      const float* r = rows + begin + k;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) s[c][threadIdx.x] = r[c * stride];
+#pragma unroll
+      for (int c = 8; c < 12; ++c) s[c - 2][threadIdx.x] = r[c * stride];
+    }
+    __syncthreads();
+    const int m = min(kBlock, n - b);
+    for (int j = 0; !done && j < m; ++j) {
+      const float A = s[0][j], B = s[1][j], C = s[2][j];
+      const float dx = px - s[3][j];
+      const float dy = py - s[4][j];
+      const float log_op = s[5][j];
+      const float q = log_op - 0.5f * (A * (dx * dx) + C * (dy * dy)) - B * (dx * dy);
+      const float alpha_un = expf(q);
+      if (!(q <= log_op) || !(alpha_un >= kAlphaMin)) continue;
+      const float alpha = fminf(alpha_un, kAlphaMax);
+      const float test_T = T * (1.0f - alpha);
+      if (test_T < kTermEps) {
+        done = true;
+        break;
+      }
+      const float w = alpha * T;
+      c0 = c0 + w * s[6][j];
+      c1 = c1 + w * s[7][j];
+      c2 = c2 + w * s[8][j];
+      c3 = c3 + w * s[9][j];
+      T = test_T;
+    }
+  }
+  if (inside) {
+    out_tile[0 * P + i] = c0 + T * bg[0];
+    out_tile[1 * P + i] = c1 + T * bg[1];
+    out_tile[2 * P + i] = c2 + T * bg[2];
+    out_tile[3 * P + i] = c3;
+    out_tile[4 * P + i] = 1.0f - T;
+  }
+}
+
+__global__ void __launch_bounds__(kBlock)
+composite_tiles_fwd_cm_kernel(const float* __restrict__ win, const int* __restrict__ counts,
+                              const float* __restrict__ origins, const float* __restrict__ bg,
+                              float* __restrict__ out, int K, int th, int tw) {
+  const int t = blockIdx.x;
+  const int n = min(counts[t], K);
+  composite_range(win + (long long)t * 12 * K, K, 0, n, origins[2 * t],
+                  origins[2 * t + 1], th, tw, bg, out + (long long)t * 5 * th * tw);
+}
+
+__global__ void __launch_bounds__(kBlock)
+composite_pairs_fwd_rg_kernel(const float* __restrict__ rows, const int* __restrict__ slot_start,
+                              const int* __restrict__ slot_count, const float* __restrict__ bg,
+                              float oy_off, float* __restrict__ out, long long Pa, int chunk,
+                              int th, int tw, int nx) {
+  const int t = blockIdx.x;
+  const float ox = (float)((t % nx) * tw);
+  const float oy = (float)((t / nx) * th) + oy_off;
+  composite_range(rows, Pa, (long long)slot_start[t] * chunk, slot_count[t] * chunk, ox, oy,
+                  th, tw, bg, out + (long long)t * 5 * th * tw);
+}
+
+}  // namespace
+
+extern "C" {
+
+// win (T, 12, K) f32; counts (T,) i32; origins (T, 2) f32; bg (3,) f32;
+// out (T, 5, th*tw) f32. Returns cudaGetLastError() after the launch.
+int composite_tiles_fwd_cm(const float* win, const int* counts, const float* origins,
+                           const float* bg, float* out, int T, int K, int th, int tw,
+                           void* stream) {
+  const dim3 grid(T, (th * tw + kBlock - 1) / kBlock);
+  composite_tiles_fwd_cm_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      win, counts, origins, bg, out, K, th, tw);
+  return (int)cudaGetLastError();
+}
+
+// rows (12, Pa) f32; slot_start, slot_count (T,) i32 (chunk slots of each
+// tile); bg (3,) f32; out (T, 5, th*tw) f32.
+int composite_pairs_fwd_rg(const float* rows, const int* slot_start, const int* slot_count,
+                           const float* bg, float oy_off, float* out, int T, long long Pa,
+                           int chunk, int th, int tw, int nx, void* stream) {
+  const dim3 grid(T, (th * tw + kBlock - 1) / kBlock);
+  composite_pairs_fwd_rg_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      rows, slot_start, slot_count, bg, oy_off, out, Pa, chunk, th, tw, nx);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,184 @@
+"""3DGS rasterization, forward (counterpart of
+exavatar_release_tpu/ops/rasterizer/api.py:rasterize).
+
+Pipeline:
+  project_gaussians                          [preprocess.py]
+  -> global depth sort + per-tile binning    [binning.py, integer outputs]
+  -> per-tile gather of 12-channel rows
+  -> tile compositing: CUDA kernel, or its plain PyTorch version on CPU
+     tensors and with backend="ref"          [kernels.py]
+  -> image assembly
+
+``prepare`` runs everything before the compositing kernel and ``composite``
+runs the kernel, so a caller can time the two apart; ``rasterize`` is the
+two in a row. The mesh/shard settings wait for the ``parallel/`` slice and
+``kernel_v=2`` for its kernels.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional, Tuple, Union
+
+import torch
+
+from ...core.camera import Camera
+from . import kernels
+from .binning import (
+    RaggedBinning,
+    TileBinning,
+    bin_gaussians_compact,
+    bin_gaussians_ragged,
+    tile_grid,
+)
+from .preprocess import ScreenGaussians, project_gaussians
+
+BACKENDS = ("cuda", "ref")
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterizeSettings:
+    tile_h: int = 32
+    tile_w: int = 128
+    # dense path: per-tile window capacity; overflow is reported in
+    # n_truncated (a 166k-Gaussian human at 1080p needs ~16384)
+    max_per_tile: int = 1024
+    # pair-major path: chunk-slot width, rounded up to a multiple of 128 as
+    # in the JAX package so the binning integers match it
+    chunk: int = 256
+    # "cuda": the hand-written kernels (plain versions on CPU tensors);
+    # "ref": the plain versions everywhere, down the dense path as in JAX
+    backend: str = "cuda"
+    # ragged pair-major compositing: no per-tile capacity, no truncation
+    pair_major: bool = False
+    # (gaussian, tile) pair budget; <= 0 means pairs_per_gaussian * N.
+    # Overflow drops the deepest Gaussians' pairs (n_dropped_pairs)
+    max_pairs: int = 0
+    pairs_per_gaussian: int = 16
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {self.backend!r}")
+
+    def ragged_chunk(self) -> int:
+        return max(128, -(-self.chunk // 128) * 128)
+
+
+class RasterInputs(NamedTuple):
+    """Everything the compositing kernel takes, as ``prepare`` leaves it."""
+
+    screen: ScreenGaussians
+    binning: Union[TileBinning, RaggedBinning]
+    rows: torch.Tensor  # dense: (T, 12, K) windows; pair-major: (12, Pa)
+    origins: Optional[torch.Tensor]  # dense: (T, 2) tile origins
+    tile_shape: Tuple[int, int]
+    chunk: int  # pair-major slot width
+
+
+def _row_table(screen: ScreenGaussians) -> torch.Tensor:
+    """(N+1, 12) conic+color rows with a sentinel row (log_op = -1e9)."""
+    rows = torch.cat([screen.params, screen.color], dim=1)
+    sentinel = torch.zeros(1, 12, device=rows.device)
+    sentinel[0, 5] = -1e9
+    return torch.cat([rows, sentinel], dim=0)
+
+
+def prepare(means3d, scales, quats, opacities, rgbs, live, cam: Camera,
+            img_shape: Tuple[int, int], settings: RasterizeSettings) -> RasterInputs:
+    """Projection, binning and the depth-sorted gather."""
+    H, W = int(img_shape[0]), int(img_shape[1])
+    th, tw = settings.tile_h, settings.tile_w
+    ny, nx = tile_grid((H, W), th, tw)
+    n = means3d.shape[0]
+    screen = project_gaussians(means3d, scales, quats, opacities, rgbs, live, cam, (H, W))
+    max_pairs = settings.max_pairs if settings.max_pairs > 0 else settings.pairs_per_gaussian * n
+    rows_pad = _row_table(screen)
+
+    if settings.pair_major and settings.backend != "ref":
+        chunk = settings.ragged_chunk()
+        rb = bin_gaussians_ragged(
+            screen.mean2d.detach(), screen.radius.detach(), screen.depth.detach(),
+            screen.in_frustum, (H, W), th, tw, chunk=chunk, max_pairs=max_pairs,
+            extent=screen.extent,
+        )
+        order_pad = torch.cat([rb.order.long(), rb.order.new_full((1,), n).long()])
+        g2 = order_pad[rb.pair_rank.long()]  # (Pa,) original row ids; n = sentinel
+        rows2 = rows_pad[g2].T.contiguous()  # (12, Pa) channel-major
+        return RasterInputs(screen, rb, rows2, None, (th, tw), chunk)
+
+    binning = bin_gaussians_compact(
+        screen.mean2d.detach(), screen.radius.detach(), screen.depth.detach(),
+        screen.in_frustum, (H, W), th, tw, settings.max_per_tile,
+        max_pairs=max_pairs, extent=screen.extent,
+    )
+    # compose the depth-sort permutation into the indices instead of
+    # reordering the rows
+    order_pad = torch.cat([binning.order.long(), binning.order.new_full((1,), n).long()])
+    gidx = order_pad[binning.tile_indices.long()]  # (T, K) original row ids
+    win = rows_pad[gidx].transpose(1, 2).contiguous()  # (T, 12, K)
+    t_ids = torch.arange(ny * nx, device=means3d.device)
+    origins = torch.stack([(t_ids % nx) * tw, (t_ids // nx) * th], dim=1).float()
+    return RasterInputs(screen, binning, win, origins, (th, tw), 0)
+
+
+def composite(inputs: RasterInputs, bg: torch.Tensor,
+              settings: RasterizeSettings) -> torch.Tensor:
+    """The compositing kernel on ``prepare``'s output -> (T, 5, P)."""
+    bg = bg.float().contiguous()
+    b = inputs.binning
+    if isinstance(b, RaggedBinning):
+        ny, nx = b.num_tiles
+        return kernels.composite_pairs_fwd_rg(
+            inputs.rows, b.tid, b.flags, bg, 0.0, inputs.tile_shape, ny * nx,
+            inputs.chunk, nx,
+        )
+    fn = (kernels.composite_tiles_fwd_cm_plain if settings.backend == "ref"
+          else kernels.composite_tiles_fwd_cm)
+    return fn(inputs.rows, b.tile_counts, inputs.origins, bg, inputs.tile_shape)
+
+
+def rasterize(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    quats: torch.Tensor,
+    opacities: torch.Tensor,
+    rgbs: torch.Tensor,
+    live: torch.Tensor,
+    cam: Camera,
+    img_shape: Tuple[int, int],
+    bg: torch.Tensor,
+    settings: RasterizeSettings = RasterizeSettings(),
+) -> Dict[str, torch.Tensor]:
+    """Render N world-space Gaussians.
+
+    Returns dict with:
+      img   (H, W, 3)  alpha-composited color over ``bg``
+      depth (H, W)     expected view-space depth (sum of w_i * z_i)
+      mask  (H, W)     accumulated alpha (1 - final transmittance)
+      mean2d (N, 2), radius (N,), is_vis (N,), tile_counts (T,)
+      n_dropped_pairs  pairs lost to the pair budget
+      n_truncated      pairs lost to the dense path's max_per_tile
+      n_dropped        the two together on the dense path
+    """
+    H, W = int(img_shape[0]), int(img_shape[1])
+    inputs = prepare(means3d, scales, quats, opacities, rgbs, live, cam, (H, W), settings)
+    full_t = composite(inputs, bg, settings)
+    th, tw = inputs.tile_shape
+    ny, nx = inputs.binning.num_tiles
+    full = (
+        full_t.reshape(ny, nx, 5, th, tw).permute(0, 3, 1, 4, 2)
+        .reshape(ny * th, nx * tw, 5)[:H, :W]
+    )
+    b = inputs.binning
+    ragged = isinstance(b, RaggedBinning)
+    return {
+        "img": full[..., 0:3],
+        "depth": full[..., 3],
+        "mask": full[..., 4],
+        "mean2d": inputs.screen.mean2d,
+        "radius": inputs.screen.radius,
+        "is_vis": inputs.screen.radius > 0,
+        "tile_counts": b.tile_counts,
+        "n_dropped": b.n_dropped_pairs if ragged else b.n_dropped_pairs + b.n_truncated,
+        "n_dropped_pairs": b.n_dropped_pairs,
+        "n_truncated": b.n_truncated,
+    }

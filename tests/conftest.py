@@ -40,6 +40,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running tests gated behind RUN_SLOW=1"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips elsewhere"
+    )
 
 
 @pytest.fixture
