@@ -1,5 +1,5 @@
 """Render-ready Gaussians (counterpart of
-exavatar_release_tpu/avatar/gaussians.py:GaussianAssets)."""
+exavatar_release_tpu/avatar/gaussians.py)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -14,3 +14,12 @@ class GaussianAssets(NamedTuple):
     rotation: torch.Tensor  # (N, 4) wxyz unit quaternions
     rgb: torch.Tensor  # (N, 3)
     live: torch.Tensor  # (N,) bool
+
+
+def concat_assets(a: GaussianAssets, b: GaussianAssets) -> GaussianAssets:
+    """Scene + human composition: rows of ``a`` first."""
+    return GaussianAssets(*(torch.cat([x, y], dim=0) for x, y in zip(a, b)))
+
+
+def detach_assets(a: GaussianAssets) -> GaussianAssets:
+    return GaussianAssets(*(x.detach() for x in a))

@@ -31,21 +31,15 @@
 // keeps rows in shared memory and state in registers: device memory sees
 // each live row once per 256-pixel block and each output once.
 //
-// Build with -fmad=false and without fast math: the 1/255 alpha floor and
-// the 1e-4 termination threshold turn last-bit differences into skipped or
-// kept Gaussians, so the kernel rounds every operation as the plain PyTorch
-// version does.
+// The thresholds, the row staging and the blend of one Gaussian at one pixel
+// are in composite_common.cuh, which the backward kernels share. Build with
+// -fmad=false and without fast math (see there).
 
-#include <cuda_runtime.h>
+#include "composite_common.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;
-// The plain version compares float32 tensors against these Python doubles,
-// which PyTorch rounds to float32: round the double the same way here.
-constexpr float kAlphaMin = (float)(1.0 / 255.0);
-constexpr float kAlphaMax = (float)0.99;
-constexpr float kTermEps = (float)1e-4;
+using namespace composite;
 
 // Composite rows [begin, begin + n) of a channel-major row table (channel c
 // of row r at rows[c * stride + r]) into the pixels of one tile. The block's
@@ -54,7 +48,7 @@ __device__ void composite_range(const float* __restrict__ rows, long long stride
                                 long long begin, int n, float ox, float oy,
                                 int th, int tw, const float* __restrict__ bg,
                                 float* __restrict__ out_tile) {
-  __shared__ float s[10][kBlock];
+  __shared__ float s[kChannels][kBlock];
   const int P = th * tw;
   const int i = blockIdx.y * kBlock + threadIdx.x;
   const bool inside = i < P;
@@ -66,27 +60,15 @@ __device__ void composite_range(const float* __restrict__ rows, long long stride
   for (int b = 0; b < n; b += kBlock) {
     // barrier before overwriting the batch; also the block's exit test
     if (__syncthreads_count(done) == kBlock) break;
-    const int k = b + threadIdx.x;
-    if (k < n) {
-      const float* r = rows + begin + k;
-#pragma unroll
-      for (int c = 0; c < 6; ++c) s[c][threadIdx.x] = r[c * stride];
-#pragma unroll
-      for (int c = 8; c < 12; ++c) s[c - 2][threadIdx.x] = r[c * stride];
-    }
+    stage_row(s, rows, stride, begin, b + threadIdx.x, n);
     __syncthreads();
     const int m = min(kBlock, n - b);
     for (int j = 0; !done && j < m; ++j) {
-      const float A = s[0][j], B = s[1][j], C = s[2][j];
-      const float dx = px - s[3][j];
-      const float dy = py - s[4][j];
-      const float log_op = s[5][j];
-      const float q = log_op - 0.5f * (A * (dx * dx) + C * (dy * dy)) - B * (dx * dy);
-      const float alpha_un = expf(q);
-      if (!(q <= log_op) || !(alpha_un >= kAlphaMin)) continue;
-      const float alpha = fminf(alpha_un, kAlphaMax);
+      float dx, dy, alpha_un;
+      if (!reaches(s, j, px, py, dx, dy, alpha_un)) continue;
+      const float alpha = clamped(alpha_un);
       const float test_T = T * (1.0f - alpha);
-      if (test_T < kTermEps) {
+      if (ends_pixel(test_T)) {
         done = true;
         break;
       }

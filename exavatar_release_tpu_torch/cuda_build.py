@@ -2,8 +2,8 @@
 
 Each library is one or more ``csrc/*.cu`` files with a plain C interface,
 compiled at first use into ``build/kernels/`` at the root of the checkout
-(listed in ``.gitignore``), under a name that hashes the sources and flags,
-so a changed source builds anew. ``build()`` starts one nvcc per missing
+(listed in ``.gitignore``), under a name that hashes the sources, the
+headers they share and the flags, so a changed source builds anew. ``build()`` starts one nvcc per missing
 library, all together, and waits for them; ``load()`` builds if needed and
 returns the ``ctypes.CDLL``. Nothing is built when a module is imported.
 """
@@ -21,7 +21,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
 LIBRARIES: Dict[str, tuple] = {
     "composite": ("csrc/composite.cu",),
+    "composite_bwd": ("csrc/composite_bwd.cu",),
 }
+# included by the sources above; hashed into every library's name
+HEADERS = ("csrc/composite_common.cuh",)
 
 # -fmad=false, no fast math: the compositing thresholds (alpha >= 1/255,
 # T < 1e-4) must see the same rounding as the plain PyTorch version.
@@ -44,7 +47,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in LIBRARIES[name]:
+    for src in LIBRARIES[name] + HEADERS:
         with open(os.path.join(_PKG, src), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")

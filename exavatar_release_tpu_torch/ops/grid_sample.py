@@ -1,5 +1,5 @@
-"""Triplane feature sampling (counterpart of
-exavatar_release_tpu/ops/grid_sample.py:triplane_sample).
+"""Bilinear grid sampling (counterpart of
+exavatar_release_tpu/ops/grid_sample.py).
 
 torch's ``F.grid_sample`` with its defaults (bilinear, align_corners=False,
 zero padding) is the semantics the JAX gather + lerp reimplements.
@@ -8,6 +8,16 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def grid_sample_2d(feat: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Sample ``feat`` (C, H, W) at normalized ``coords`` (N, 2) in [-1, 1];
+    coords[:, 0] indexes W. Out-of-range taps read zeros. Returns (N, C)."""
+    out = F.grid_sample(
+        feat[None], coords[None, None], mode="bilinear", padding_mode="zeros",
+        align_corners=False,
+    )  # (1, C, 1, N)
+    return out[0, :, 0, :].T
 
 
 def triplane_sample(triplane: torch.Tensor, xyz: torch.Tensor,

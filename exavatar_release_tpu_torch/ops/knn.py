@@ -1,5 +1,5 @@
 """Brute-force K-nearest-neighbour search (counterpart of
-exavatar_release_tpu/ops/knn.py:knn).
+exavatar_release_tpu/ops/knn.py).
 
 Distances are ``||q||² - 2 q·rᵀ + ||r||²`` in query chunks, the same
 expanded form as the JAX package, so that ties resolve the same way: a
@@ -40,3 +40,11 @@ def knn(query: torch.Tensor, ref: torch.Tensor, k: int, chunk: int = 4096) -> KN
             dists.append(d)
         idxs.append(idx)
     return KNNResult(dists=torch.cat(dists), idx=torch.cat(idxs))
+
+
+def mean_knn_dist_sq(points: torch.Tensor, k: int = 4, chunk: int = 4096) -> torch.Tensor:
+    """Mean squared distance to the k-1 nearest *other* points, clamped to
+    >= 1e-7: the 3DGS scale-init statistic. The nearest match (the point
+    itself, at distance 0) is dropped."""
+    d = knn(points, points, k, chunk=chunk).dists[:, 1:]
+    return torch.clamp(torch.mean(d, dim=1), min=1e-7)

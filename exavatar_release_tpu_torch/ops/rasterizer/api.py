@@ -1,4 +1,4 @@
-"""3DGS rasterization, forward (counterpart of
+"""Differentiable 3DGS rasterization (counterpart of
 exavatar_release_tpu/ops/rasterizer/api.py:rasterize).
 
 Pipeline:
@@ -6,8 +6,19 @@ Pipeline:
   -> global depth sort + per-tile binning    [binning.py, integer outputs]
   -> per-tile gather of 12-channel rows
   -> tile compositing: CUDA kernel, or its plain PyTorch version on CPU
-     tensors and with backend="ref"          [kernels.py]
+     tensors                                 [kernels.py]
   -> image assembly
+
+Gradients: projection, the gather (``index_select``, whose transpose is
+``index_add_``) and the image assembly are plain PyTorch under autograd. The
+compositing kernels sit in two ``torch.autograd.Function``s whose backward
+is the backward kernel (its plain version on CPU tensors), as the JAX
+package wraps its Pallas kernels in ``custom_vjp``; the background's
+gradient, sum of g_img (1 - mask), is plain PyTorch there too. With
+``backend="ref"`` the dense plain forward runs under autograd itself, as
+the JAX package's ref backend is ``jax.grad`` over ``jax_ref``: that
+gradient is zero through the 0.99 alpha clamp, where the kernels follow
+renderCUDA's unclamped rule. Under ``torch.no_grad()`` nothing is saved.
 
 ``prepare`` runs everything before the compositing kernel and ``composite``
 runs the kernel, so a caller can time the two apart; ``rasterize`` is the
@@ -45,8 +56,9 @@ class RasterizeSettings:
     # pair-major path: chunk-slot width, rounded up to a multiple of 128 as
     # in the JAX package so the binning integers match it
     chunk: int = 256
-    # "cuda": the hand-written kernels (plain versions on CPU tensors);
-    # "ref": the plain versions everywhere, down the dense path as in JAX
+    # "cuda": the hand-written kernels, forward and backward (their plain
+    # versions on CPU tensors); "ref": the dense plain forward everywhere,
+    # differentiated by autograd, as in JAX
     backend: str = "cuda"
     # ragged pair-major compositing: no per-tile capacity, no truncation
     pair_major: bool = False
@@ -74,6 +86,14 @@ class RasterInputs(NamedTuple):
     chunk: int  # pair-major slot width
 
 
+def _take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for an index tensor of any shape, through
+    ``index_select``: its backward is ``index_add_`` (atomic adds), where
+    the backward of ``table[idx]`` sorts the indices first, which at the
+    millions of pair slots of a frame took most of a backward pass."""
+    return torch.index_select(table, 0, idx.reshape(-1)).reshape(*idx.shape, *table.shape[1:])
+
+
 def _row_table(screen: ScreenGaussians) -> torch.Tensor:
     """(N+1, 12) conic+color rows with a sentinel row (log_op = -1e9)."""
     rows = torch.cat([screen.params, screen.color], dim=1)
@@ -82,14 +102,65 @@ def _row_table(screen: ScreenGaussians) -> torch.Tensor:
     return torch.cat([rows, sentinel], dim=0)
 
 
+class _CompositeDense(torch.autograd.Function):
+    """``composite_tiles_fwd_cm`` with ``composite_tiles_bwd_cm`` as its
+    backward: differentiable in ``win`` and ``bg``."""
+
+    @staticmethod
+    def forward(ctx, win, counts, origins, bg, tile_shape):
+        full = kernels.composite_tiles_fwd_cm(win, counts, origins, bg, tile_shape)
+        ctx.save_for_backward(win, counts, origins, bg, full)
+        ctx.tile_shape = tile_shape
+        return full
+
+    @staticmethod
+    def backward(ctx, g_full):
+        win, counts, origins, bg, full = ctx.saved_tensors
+        # the image assembly's transpose hands over a permuted view
+        g_full = g_full.contiguous()
+        dwin = kernels.composite_tiles_bwd_cm(win, counts, origins, bg, full, g_full,
+                                              ctx.tile_shape)
+        return dwin, None, None, _bg_grad(full, g_full), None
+
+
+class _CompositeRagged(torch.autograd.Function):
+    """``composite_pairs_fwd_rg`` with ``composite_pairs_bwd_rg`` as its
+    backward: differentiable in ``rows`` and ``bg``."""
+
+    @staticmethod
+    def forward(ctx, rows, tid, flags, bg, tile_shape, num_tiles, chunk, nx):
+        full = kernels.composite_pairs_fwd_rg(rows, tid, flags, bg, 0.0, tile_shape, num_tiles,
+                                              chunk, nx)
+        ctx.save_for_backward(rows, tid, flags, bg, full)
+        ctx.static = (tile_shape, num_tiles, chunk, nx)
+        return full
+
+    @staticmethod
+    def backward(ctx, g_full):
+        rows, tid, flags, bg, full = ctx.saved_tensors
+        g_full = g_full.contiguous()
+        drows = kernels.composite_pairs_bwd_rg(rows, tid, flags, bg, 0.0, full, g_full,
+                                               *ctx.static)
+        return drows, None, None, _bg_grad(full, g_full), None, None, None, None
+
+
+def _bg_grad(full: torch.Tensor, g_full: torch.Tensor) -> torch.Tensor:
+    """d img_c / d bg_c = 1 - mask, per pixel."""
+    return torch.sum(g_full[:, 0:3] * (1.0 - full[:, 4:5]), dim=(0, 2))
+
+
 def prepare(means3d, scales, quats, opacities, rgbs, live, cam: Camera,
-            img_shape: Tuple[int, int], settings: RasterizeSettings) -> RasterInputs:
-    """Projection, binning and the depth-sorted gather."""
+            img_shape: Tuple[int, int], settings: RasterizeSettings,
+            mean2d_offset: Optional[torch.Tensor] = None) -> RasterInputs:
+    """Projection, binning and the depth-sorted gather. ``mean2d_offset``
+    (N, 2) is added to the projected means: the gradient with respect to a
+    zero offset is the screen-space mean gradient densification reads."""
     H, W = int(img_shape[0]), int(img_shape[1])
     th, tw = settings.tile_h, settings.tile_w
     ny, nx = tile_grid((H, W), th, tw)
     n = means3d.shape[0]
-    screen = project_gaussians(means3d, scales, quats, opacities, rgbs, live, cam, (H, W))
+    screen = project_gaussians(means3d, scales, quats, opacities, rgbs, live, cam, (H, W),
+                               mean2d_offset)
     max_pairs = settings.max_pairs if settings.max_pairs > 0 else settings.pairs_per_gaussian * n
     rows_pad = _row_table(screen)
 
@@ -102,7 +173,7 @@ def prepare(means3d, scales, quats, opacities, rgbs, live, cam: Camera,
         )
         order_pad = torch.cat([rb.order.long(), rb.order.new_full((1,), n).long()])
         g2 = order_pad[rb.pair_rank.long()]  # (Pa,) original row ids; n = sentinel
-        rows2 = rows_pad[g2].T.contiguous()  # (12, Pa) channel-major
+        rows2 = _take_rows(rows_pad, g2).T.contiguous()  # (12, Pa) channel-major
         return RasterInputs(screen, rb, rows2, None, (th, tw), chunk)
 
     binning = bin_gaussians_compact(
@@ -114,7 +185,7 @@ def prepare(means3d, scales, quats, opacities, rgbs, live, cam: Camera,
     # reordering the rows
     order_pad = torch.cat([binning.order.long(), binning.order.new_full((1,), n).long()])
     gidx = order_pad[binning.tile_indices.long()]  # (T, K) original row ids
-    win = rows_pad[gidx].transpose(1, 2).contiguous()  # (T, 12, K)
+    win = _take_rows(rows_pad, gidx).transpose(1, 2).contiguous()  # (T, 12, K)
     t_ids = torch.arange(ny * nx, device=means3d.device)
     origins = torch.stack([(t_ids % nx) * tw, (t_ids // nx) * th], dim=1).float()
     return RasterInputs(screen, binning, win, origins, (th, tw), 0)
@@ -127,13 +198,13 @@ def composite(inputs: RasterInputs, bg: torch.Tensor,
     b = inputs.binning
     if isinstance(b, RaggedBinning):
         ny, nx = b.num_tiles
-        return kernels.composite_pairs_fwd_rg(
-            inputs.rows, b.tid, b.flags, bg, 0.0, inputs.tile_shape, ny * nx,
-            inputs.chunk, nx,
-        )
-    fn = (kernels.composite_tiles_fwd_cm_plain if settings.backend == "ref"
-          else kernels.composite_tiles_fwd_cm)
-    return fn(inputs.rows, b.tile_counts, inputs.origins, bg, inputs.tile_shape)
+        return _CompositeRagged.apply(inputs.rows, b.tid, b.flags, bg, inputs.tile_shape,
+                                      ny * nx, inputs.chunk, nx)
+    if settings.backend == "ref":
+        return kernels.composite_tiles_fwd_cm_plain(inputs.rows, b.tile_counts, inputs.origins,
+                                                    bg, inputs.tile_shape)
+    return _CompositeDense.apply(inputs.rows, b.tile_counts, inputs.origins, bg,
+                                 inputs.tile_shape)
 
 
 def rasterize(
@@ -147,8 +218,9 @@ def rasterize(
     img_shape: Tuple[int, int],
     bg: torch.Tensor,
     settings: RasterizeSettings = RasterizeSettings(),
+    mean2d_offset: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Render N world-space Gaussians.
+    """Differentiable render of N world-space Gaussians.
 
     Returns dict with:
       img   (H, W, 3)  alpha-composited color over ``bg``
@@ -160,7 +232,8 @@ def rasterize(
       n_dropped        the two together on the dense path
     """
     H, W = int(img_shape[0]), int(img_shape[1])
-    inputs = prepare(means3d, scales, quats, opacities, rgbs, live, cam, (H, W), settings)
+    inputs = prepare(means3d, scales, quats, opacities, rgbs, live, cam, (H, W), settings,
+                     mean2d_offset)
     full_t = composite(inputs, bg, settings)
     th, tw = inputs.tile_shape
     ny, nx = inputs.binning.num_tiles

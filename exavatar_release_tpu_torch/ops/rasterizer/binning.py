@@ -1,9 +1,11 @@
 """Tile binning: assigning depth-ordered Gaussians to image tiles
-(counterpart of exavatar_release_tpu/ops/rasterizer/binning.py; the compact
-and ragged algorithms, without the sharded band's tile-row offset, which
-waits for the parallel/ slice).
+(counterpart of exavatar_release_tpu/ops/rasterizer/binning.py; the
+pair-sort, compact and ragged algorithms, without the sharded band's
+tile-row offset, which waits for the parallel/ slice).
 
-Each Gaussian emits its (tile) pairs contiguously at exclusive-cumsum
+``bin_gaussians_sorted`` (also ``bin_gaussians``; the mesh rasterizer bins
+its faces with it) gives every Gaussian ``max_tiles_per_gaussian`` pair
+lanes. In the compact and ragged algorithms each Gaussian emits its (tile) pairs contiguously at exclusive-cumsum
 offsets inside a static pair budget; one stable single-key sort by tile
 keeps the global depth order inside every tile. Every integer output
 (``order``, ``tile_indices``, ``pair_rank``, ``tid``, ``flags``,
@@ -132,6 +134,65 @@ class TileBinning(NamedTuple):
     n_truncated: torch.Tensor  # () int32 pairs lost to max_per_tile
 
 
+def _windows(rank_sorted, starts, counts, n: int, max_per_tile: int) -> torch.Tensor:
+    """(T, max_per_tile) depth ranks of each tile's first pairs; n past its count."""
+    k = torch.arange(max_per_tile, dtype=I64, device=rank_sorted.device)[None, :]
+    idx = starts[:-1, None] + k
+    rank_pad = torch.cat([rank_sorted, rank_sorted.new_full((1,), n)])
+    gathered = rank_pad[torch.clamp(idx, 0, rank_sorted.shape[0])]
+    return torch.where(k < counts[:, None], gathered, n)
+
+
+def bin_gaussians_sorted(mean2d, radius, depth, visible, img_shape, tile_h=8, tile_w=128,
+                         max_per_tile=1024, max_tiles_per_gaussian=64,
+                         extent=None) -> TileBinning:
+    """Pair-sort binning: each Gaussian emits up to ``max_tiles_per_gaussian``
+    (tile, depth-rank) pairs over its screen rectangle, row-major, keeping
+    the top-left part of a larger rectangle (``n_dropped_pairs`` counts the
+    rest); one stable sort by tile keeps the depth order inside every tile."""
+    n = mean2d.shape[0]
+    dev = mean2d.device
+    ny, nx = tile_grid(img_shape, tile_h, tile_w)
+    num_tiles = ny * nx
+    E = max_tiles_per_gaussian
+
+    sort_key = torch.where(visible, depth, torch.inf)
+    order = torch.argsort(sort_key, stable=True)
+    m2d = mean2d[order]
+    rad = radius[order]
+    vis = visible[order] & (rad > 0)
+    ext = None if extent is None else extent[order]
+    x_lo, x_hi, y_lo, y_hi = _tile_rect(m2d, rad, tile_h, tile_w, ny, nx, ext)
+    w = x_hi - x_lo
+    span = w * (y_hi - y_lo)
+
+    e = torch.arange(E, dtype=I64, device=dev)[None, :]
+    safe_w = torch.clamp(w, min=1)[:, None]
+    ty = y_lo[:, None] + torch.div(e, safe_w, rounding_mode="floor")
+    tx = x_lo[:, None] + torch.remainder(e, safe_w)
+    valid = vis[:, None] & (e < span[:, None])
+    tile_e = torch.where(valid, ty * nx + tx, num_tiles)
+
+    # rows are depth ranks, so a stable sort by tile alone keeps depth order
+    tile_sorted, perm = torch.sort(tile_e.reshape(-1), stable=True)
+    rank_sorted = torch.div(perm, E, rounding_mode="floor")
+    starts = torch.searchsorted(
+        tile_sorted, torch.arange(num_tiles + 1, dtype=I64, device=dev)
+    )
+    counts = starts[1:] - starts[:-1]
+    return TileBinning(
+        order=order.to(I32),
+        tile_indices=_windows(rank_sorted, starts, counts, n, max_per_tile).to(I32),
+        tile_counts=counts.to(I32),
+        num_tiles=(ny, nx),
+        n_dropped_pairs=torch.sum(torch.where(vis, torch.clamp(span - E, min=0), 0)).to(I32),
+        n_truncated=torch.sum(torch.clamp(counts - max_per_tile, min=0)).to(I32),
+    )
+
+
+bin_gaussians = bin_gaussians_sorted
+
+
 def bin_gaussians_compact(mean2d, radius, depth, visible, img_shape, tile_h=8,
                           tile_w=128, max_per_tile=1024, max_pairs=0,
                           extent=None) -> TileBinning:
@@ -145,14 +206,9 @@ def bin_gaussians_compact(mean2d, radius, depth, visible, img_shape, tile_h=8,
     (order, _, rank_sorted, starts, counts, total_pairs, ny, nx) = _compact_sorted_pairs(
         mean2d, radius, depth, visible, img_shape, tile_h, tile_w, Pm, extent
     )
-    k = torch.arange(max_per_tile, dtype=I64, device=mean2d.device)[None, :]
-    idx = starts[:-1, None] + k
-    rank_pad = torch.cat([rank_sorted, rank_sorted.new_full((1,), n)])
-    gathered = rank_pad[torch.clamp(idx, 0, Pm)]
-    tile_indices = torch.where(k < counts[:, None], gathered, n)
     return TileBinning(
         order=order.to(I32),
-        tile_indices=tile_indices.to(I32),
+        tile_indices=_windows(rank_sorted, starts, counts, n, max_per_tile).to(I32),
         tile_counts=counts.to(I32),
         num_tiles=(ny, nx),
         n_dropped_pairs=torch.clamp(total_pairs - Pm, min=0).to(I32),
