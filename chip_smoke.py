@@ -8,10 +8,10 @@ the JAX package) and fails with a non-zero exit when any phase fails:
 
 1. builds the CUDA kernels from ``exavatar_release_tpu_torch/csrc`` (nvcc,
    sm_90a) and prints the card's name and power limit;
-2. holds each compositing kernel, forward and backward, against its plain
-   PyTorch version on the card, on seeded random windows at the 1080p
-   tiling (a random cotangent for the backward; each of its ten used rows
-   against that row's own largest value), and the two forward kernels
+2. holds each of the eight compositing kernels, forward and backward,
+   against its plain PyTorch version on the card, on seeded random windows at
+   the 1080p tiling (random cotangents for the backward; each of its ten used
+   rows against that row's own largest value), and the forward kernels
    against each other on the same scene;
 3. renders the golden scenes of ``tests/goldens`` through the dense and the
    pair-major path and compares outputs and input gradients with the
@@ -33,7 +33,17 @@ the JAX package) and fails with a non-zero exit when any phase fails:
    against their plain versions, row by row, on the frame's own windows
    under an image, mask and depth cotangent;
    times forward, backward and each backward kernel and prints the peak
-   memory and a profile.
+   memory and a profile;
+6. trains at the same width (``phase_train``): ``apps.train.train_loop`` from
+   the default ``RasterizeSettings()`` with a capacity governor of patience
+   1 until it has switched to pair-major and loses no pair; further steps on
+   one frame (loss falls, statistics tracked, time per step split into
+   ``loss_and_grads``, optimizer update and ``track_stats``); densify/prune
+   with the Adam-moment surgery, opacity reset, capacity growth; a
+   checkpoint written and read back on the card; and the same step through
+   ``kernel_v=2``, whose row-major kernels (and the two of the row-major
+   boundary with origins) are held against their plain versions on that
+   step's windows.
 
 Weights are random, drawn from seeded ``torch.Generator``s and then brought
 into a trained avatar's range (Gaussian scales of ~6 mm, offsets of ~mm),
@@ -67,16 +77,29 @@ BYTES_PER_PIXEL = 20  # 5 f32 outputs
 OPS_PER_HIT = 45
 BWD_BYTES_PER_PIXEL = 40
 
+# row-major rows: 8 + 4 f32 of a live row; the backward reads g_accum,
+# g_tfinal, accum and tfinal per pixel
+RM_BYTES_PER_ROW = 48
+
 FWD_KERNELS = ("composite_tiles_fwd_cm", "composite_pairs_fwd_rg")
 BWD_KERNELS = ("composite_tiles_bwd_cm", "composite_pairs_bwd_rg")
+RM_FWD_KERNELS = ("composite_tiles_fwd_v2", "composite_tiles_fwd")
+RM_BWD_KERNELS = ("composite_tiles_bwd_v2", "composite_tiles_bwd")
+ALL_KERNELS = FWD_KERNELS + BWD_KERNELS + RM_FWD_KERNELS + RM_BWD_KERNELS
 KERNEL_SOURCE = {k: "exavatar_release_tpu_torch/csrc/composite.cu" for k in FWD_KERNELS}
 KERNEL_SOURCE.update({k: "exavatar_release_tpu_torch/csrc/composite_bwd.cu" for k in BWD_KERNELS})
+KERNEL_SOURCE.update({k: "exavatar_release_tpu_torch/csrc/composite_rm.cu"
+                      for k in RM_FWD_KERNELS + RM_BWD_KERNELS})
 _PK = "exavatar_release_tpu/ops/rasterizer/pallas_kernels.py"
 REPLACES = {
     "composite_tiles_fwd_cm": f"{_PK}:666",
     "composite_tiles_bwd_cm": f"{_PK}:716",
     "composite_pairs_fwd_rg": f"{_PK}:1389",
     "composite_pairs_bwd_rg": f"{_PK}:1445",
+    "composite_tiles_fwd_v2": f"{_PK}:932",
+    "composite_tiles_bwd_v2": f"{_PK}:988",
+    "composite_tiles_fwd": f"{_PK}:1055",
+    "composite_tiles_bwd": f"{_PK}:1110",
 }
 TOL = {"img": 1e-5, "mask": 1e-5, "depth": 1e-4}  # kernel vs plain, both on the card
 # backward kernel vs plain, each of the ten used rows against that row's own
@@ -84,6 +107,18 @@ TOL = {"img": 1e-5, "mask": 1e-5, "depth": 1e-4}  # kernel vs plain, both on the
 # kernels sum over pixels with atomics, in an order that differs from the
 # plain version's
 GRAD_TOL = 1e-4
+# kernel_v=2 against kernel_v=1, each gradient leaf against its own largest
+# value. The packed form cancels terms of size |dq| 128^2 px^2 down to |dq| dx^2
+# when its coefficients' gradients are carried back to the conic, in float32 on
+# both sides of the (T, K, 8) interface, and its q differs from the direct
+# form's in the last bits, which flips a few 1/255 and 1e-4 thresholds. Leaves
+# that are small sums of cancelling terms (the hands' poses) amplify both: on
+# an H100 the worst leaf came out at 1.7e-3, 3.2e-3 and 1.1e-2 of its own max
+# in three runs and states, while each path repeated itself within 1e-4. The
+# limit is the one the JAX package holds its kernel paths' gradients to
+# (tests/test_goldens.py); a wrong kernel or a dropped cotangent moves the
+# leaves by tenths. The screen-space means' gradient is held to 1e-3.
+V2_LEAF_TOL = 2.5e-2
 GRAD_ROWS = {0: "dA", 1: "dB", 2: "dC", 3: "dgx", 4: "dgy", 5: "dlog_op", 8: "dr", 9: "dg",
              10: "db", 11: "ddepth"}
 
@@ -160,14 +195,14 @@ def cuda_ms(fn, iters: int) -> float:
 def reset_launches() -> None:
     from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
 
-    for k in FWD_KERNELS + BWD_KERNELS:
+    for k in ALL_KERNELS:
         getattr(kn, k).launches = 0
 
 
 def read_launches() -> dict:
     from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
 
-    return {k: getattr(kn, k).launches for k in FWD_KERNELS + BWD_KERNELS}
+    return {k: getattr(kn, k).launches for k in ALL_KERNELS}
 
 
 def profile_frame(fn, top: int = 12, what: str = "one pair-major frame") -> dict:
@@ -192,6 +227,33 @@ def profile_frame(fn, top: int = 12, what: str = "one pair-major frame") -> dict
     for e in sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d} calls  {e.key}")
     return {"wall_ms": wall_ms, "device_ms": device_ms}
+
+
+def rm_max_err(got, want) -> dict:
+    """Max abs difference of (accum (T,P,4), tfinal (T,P,1)) pairs, under the
+    names of TOL: img = accum's colors, depth = its fourth lane, mask =
+    tfinal (mask = 1 - tfinal)."""
+    da, dt = (got[0] - want[0]).abs(), (got[1] - want[1]).abs()
+    return {"img": float(da[..., 0:3].max()), "depth": float(da[..., 3].max()),
+            "mask": float(dt.max())}
+
+
+def rm_grad_rows(got, want) -> dict:
+    """``grad_rows`` for (dquad (T,K,8), dcolor (T,K,4)) pairs: side by side
+    they have the channel-major rows' layout, lanes 6-7 zero."""
+    import torch
+
+    return grad_rows(torch.cat(got, dim=2), torch.cat(want, dim=2), 2)
+
+
+def rm_rows_from_windows(win, origins):
+    """Channel-major windows (T, 12, K) as the row-major kernels' inputs:
+    (global conic rows (T,K,8), packed coefficients (T,K,8), colors (T,K,4))."""
+    from exavatar_release_tpu_torch.ops.rasterizer.preprocess import pack_tile_quads
+
+    rows_g = win[:, :8].transpose(1, 2).contiguous()
+    color = win[:, 8:].transpose(1, 2).contiguous()
+    return rows_g, pack_tile_quads(rows_g, origins[:, None, :]).contiguous(), color
 
 
 # --------------------------------------------------------------------------
@@ -306,6 +368,71 @@ def phase_kernels_random(device, T=510, K=1024, tile_shape=(32, 128), nx=15,
     res["ok"] = zeros_ok and all(within(res[k], TOL) for k in
                                  ("composite_tiles_fwd_cm", "composite_pairs_fwd_rg", "k1_vs_k2"))
     res["ok"] &= all(res[k]["ok"] for k in BWD_KERNELS)
+    rm = kernels_random_rm(win, counts, origins, bg, out1, (th, tw))
+    res["ok"] &= rm.pop("ok")
+    res.update(rm)
+    return res
+
+
+def kernels_random_rm(win, counts, origins, bg, full_cm, tile_shape) -> dict:
+    """The four row-major kernels on the same random windows, repacked:
+    forward against the plain versions (TOL), kernel 5 with origins against
+    the channel-major kernel's output (accum + tfinal bg against full),
+    kernel 3 against kernel 5 without origins bit for bit; backward under
+    random g_accum AND g_tfinal, row by row (GRAD_TOL), with exact zeros in
+    lanes 6-7 and in slots at or past each tile's count."""
+    import torch
+
+    from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
+
+    T, _, K = win.shape
+    P = tile_shape[0] * tile_shape[1]
+    rows_g, packed, color = rm_rows_from_windows(win, origins)
+    f3 = kn.composite_tiles_fwd_v2(packed, color, counts, tile_shape)
+    f5 = kn.composite_tiles_fwd(packed, color, counts, tile_shape)
+    f5o = kn.composite_tiles_fwd(rows_g, color, counts, tile_shape, origins)
+    p3 = kn.composite_tiles_fwd_v2_plain(packed, color, counts, tile_shape)
+    p5o = kn.composite_tiles_fwd_plain(rows_g, color, counts, tile_shape, origins)
+    over_bg = torch.cat([f5o[0][..., 0:3] + f5o[1] * bg, f5o[0][..., 3:4], 1.0 - f5o[1]],
+                        dim=2).permute(0, 2, 1)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    g_accum = torch.randn(T, P, 4, generator=g).to(win.device)
+    g_tfinal = torch.randn(T, P, 1, generator=g).to(win.device)
+    cot = (g_accum, g_tfinal)
+    # each backward gets its own forward's outputs
+    b4 = kn.composite_tiles_bwd_v2(packed, color, counts, *cot, *f3, tile_shape)
+    b6 = kn.composite_tiles_bwd(packed, color, counts, *cot, *f5, tile_shape)
+    b6o = kn.composite_tiles_bwd(rows_g, color, counts, *cot, *f5o, tile_shape, origins)
+    q4 = kn.composite_tiles_bwd_v2_plain(packed, color, counts, *cot, *p3, tile_shape)
+    q6o = kn.composite_tiles_bwd_plain(rows_g, color, counts, *cot, *p5o, tile_shape, origins)
+    if win.device.type == "cuda":
+        torch.cuda.synchronize()
+    res = {
+        "composite_tiles_fwd_v2": rm_max_err(f3, p3),
+        "composite_tiles_fwd": rm_max_err(f5o, p5o),
+        "k5_origins_vs_k1": max_err(over_bg, full_cm),
+        "composite_tiles_bwd_v2": rm_grad_rows(b4, q4),
+        "composite_tiles_bwd": rm_grad_rows(b6o, q6o),
+        "composite_tiles_bwd_packed": rm_grad_rows(b6, q4),
+    }
+    same = torch.equal(f3[0], f5[0]) and torch.equal(f3[1], f5[1])
+    past = torch.arange(K, device=win.device)[None, :] >= counts[:, None]
+    zeros_ok = not any(bool(x[past].any()) for pair in (b4, b6, b6o) for x in pair)
+    for k in ("composite_tiles_fwd_v2", "composite_tiles_fwd", "k5_origins_vs_k1"):
+        log(f"[kernels/random] {k} max abs diff {res[k]} (limits {TOL})")
+    log(f"[kernels/random] composite_tiles_fwd_v2 == composite_tiles_fwd without origins, "
+        f"bit for bit: {same}")
+    for k, what in (("composite_tiles_bwd_v2", "packed rows"),
+                    ("composite_tiles_bwd", "global rows + origins"),
+                    ("composite_tiles_bwd_packed", "composite_tiles_bwd, packed rows")):
+        log_grad_rows("kernels/random", f"{k} ({what})", res[k])
+    log(f"[kernels/random] row-major backward: zeros in dead slots: {zeros_ok}")
+    res["ok"] = (same and zeros_ok
+                 and all(within(res[k], TOL) for k in
+                         ("composite_tiles_fwd_v2", "composite_tiles_fwd", "k5_origins_vs_k1"))
+                 and all(res[k]["ok"] for k in
+                         ("composite_tiles_bwd_v2", "composite_tiles_bwd",
+                          "composite_tiles_bwd_packed")))
     return res
 
 
@@ -476,7 +603,8 @@ def phase_animate(device, img=(1080, 1920), focal=1200.0, dense_k=16384, timing_
         check(f"frame {i} dense vs ragged", diff <= 1e-5, f"max abs diff {diff}")
     for k in FWD_KERNELS:
         check(f"{k} launched", launches[k] == len(poses), f"{launches[k]} launches")
-    for k in BWD_KERNELS:  # serving runs under no_grad: no backward, nothing saved
+    # serving runs under no_grad: no backward, nothing saved; and no row-major kernel
+    for k in BWD_KERNELS + RM_FWD_KERNELS + RM_BWD_KERNELS:
         check(f"{k} not launched", launches[k] == 0, f"{launches[k]} launches")
 
     # both kernels against their plain versions on frame 0's own inputs
@@ -649,6 +777,44 @@ def build_frame(device, img=(1080, 1920), focal=1200.0, scene_capacity=1 << 15,
     return cfg, trainables, state.aux, bundle, frame, bg
 
 
+def find_capacities(trainables, scene_aux, bundle, frame, cfg, tag, frame_row=0):
+    """The pair budget and the dense window width at which this frame's
+    largest render (scene + refined human) loses no pair: (pairs_per_gaussian,
+    max_per_tile rounded up to 256, (scene, human, scene+human assets))."""
+    import torch
+
+    from exavatar_release_tpu_torch.avatar import scene as sc
+    from exavatar_release_tpu_torch.avatar.gaussians import concat_assets
+    from exavatar_release_tpu_torch.avatar.human import human_forward
+    from exavatar_release_tpu_torch.ops.rasterizer import api
+
+    H, W = frame.img.shape[1:]
+    with torch.no_grad():
+        cam = frame.cam
+        s_asset = sc.scene_assets(sc.SceneState(trainables.scene, scene_aux), cam.R, cam.t)
+        h_asset = human_forward(trainables.human, bundle.buffers, bundle.prior,
+                                trainables.frames.lookup(frame_row), bundle.id_info, cam.R, cam.t,
+                                cfg).assets_refined
+        both = concat_assets(s_asset, h_asset)
+        ppg, max_count = 16, 0
+        while True:
+            probe = api.RasterizeSettings(pair_major=True, pairs_per_gaussian=ppg)
+            drops = 0
+            for a in (s_asset, h_asset, both):
+                b = api.prepare(a.mean_3d, a.scale, a.rotation, a.opacity, a.rgb, a.live, cam,
+                                (H, W), probe).binning
+                drops += int(b.n_dropped_pairs)
+                max_count = max(max_count, int(b.tile_counts.max()))
+                pairs = int(b.tile_counts.sum())
+            if drops == 0 or ppg >= 256:
+                break
+            ppg *= 2
+        dense_k = -(-max_count // 256) * 256
+    log(f"[{tag}] capacities: pairs_per_gaussian={ppg}, dense max_per_tile={dense_k} "
+        f"(largest tile holds {max_count}; scene+human render has {pairs} live pairs)")
+    return ppg, dense_k, (s_asset, h_asset, both)
+
+
 def phase_frame(device, timing_iters=2, **setup_kw) -> dict:
     import torch
 
@@ -675,31 +841,9 @@ def phase_frame(device, timing_iters=2, **setup_kw) -> dict:
         res["ok"] &= bool(cond)
         log(f"[frame] {name}: {detail} {'ok' if cond else 'FAIL'}")
 
-    # capacities: the pair budget and the dense window width at which this
-    # frame's largest render (scene + human) loses no pair
-    with torch.no_grad():
-        cam = frame.cam
-        s_asset = sc.scene_assets(sc.SceneState(trainables.scene, scene_aux), cam.R, cam.t)
-        h_asset = human_forward(trainables.human, bundle.buffers, bundle.prior,
-                                trainables.frames.lookup(0), bundle.id_info, cam.R, cam.t,
-                                cfg).assets_refined
-        both = concat_assets(s_asset, h_asset)
-        ppg, max_count = 16, 0
-        while True:
-            probe = api.RasterizeSettings(pair_major=True, pairs_per_gaussian=ppg)
-            drops = 0
-            for a in (s_asset, h_asset, both):
-                b = api.prepare(a.mean_3d, a.scale, a.rotation, a.opacity, a.rgb, a.live, cam,
-                                (H, W), probe).binning
-                drops += int(b.n_dropped_pairs)
-                max_count = max(max_count, int(b.tile_counts.max()))
-                pairs = int(b.tile_counts.sum())
-            if drops == 0 or ppg >= 256:
-                break
-            ppg *= 2
-        dense_k = -(-max_count // 256) * 256
-    log(f"[frame] capacities: pairs_per_gaussian={ppg}, dense max_per_tile={dense_k} "
-        f"(largest tile holds {max_count}; scene+human render has {pairs} live pairs)")
+    cam = frame.cam
+    ppg, dense_k, (s_asset, h_asset, both) = find_capacities(trainables, scene_aux, bundle, frame,
+                                                             cfg, "frame")
     ragged = api.RasterizeSettings(pair_major=True, pairs_per_gaussian=ppg)
     dense = api.RasterizeSettings(max_per_tile=dense_k, pairs_per_gaussian=ppg)
 
@@ -736,7 +880,7 @@ def phase_frame(device, timing_iters=2, **setup_kw) -> dict:
     }
     for path, want in expect.items():
         # CPU tensors (a rehearsal) run the plain versions and launch nothing
-        want = {k: want.get(k, 0) if on_card else 0 for k in FWD_KERNELS + BWD_KERNELS}
+        want = {k: want.get(k, 0) if on_card else 0 for k in ALL_KERNELS}
         check(f"launches of {path}", launches[path] == want, f"{launches[path]}")
 
     for k in ("scene_img", "human_img", "scene_human_img", "human_img_refined",
@@ -886,6 +1030,380 @@ def phase_frame(device, timing_iters=2, **setup_kw) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 6: the trainer at full width
+# --------------------------------------------------------------------------
+
+
+def phase_train(device, steps=4, timing_iters=2, grow_to=1 << 16, start_kw=None,
+                governor_kw=None, v2_leaf_tol=V2_LEAF_TOL, **setup_kw) -> dict:
+    """``start_kw`` / ``governor_kw``: the trainer's first ``RasterizeSettings``
+    and the governor's options, for a rehearsal at a tiny size (the defaults
+    are a user's); ``v2_leaf_tol`` likewise (an image of a few thousand pixels
+    moves a leaf by percents when one threshold flips)."""
+    import copy
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from exavatar_release_tpu_torch.apps.train import train_loop
+    from exavatar_release_tpu_torch.avatar import convert
+    from exavatar_release_tpu_torch.avatar import scene as sc
+    from exavatar_release_tpu_torch.ops.rasterizer import api
+    from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
+    from exavatar_release_tpu_torch.train import loop as tl
+    from exavatar_release_tpu_torch.train.checkpoint import (
+        latest_checkpoint, load_checkpoint, save_checkpoint,
+    )
+    from exavatar_release_tpu_torch.train.optim import make_optimizer
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg, trainables, scene_aux, bundle, frame, bg = build_frame(device, **setup_kw)
+    cfg = dataclasses.replace(cfg, end_epoch=3)
+    frames = [frame, frame._replace(frame_row=1)]
+    H, W = frame.img.shape[1:]
+    res = {"ok": True, "launches": {}}
+
+    def check(name, cond, detail):
+        res["ok"] &= bool(cond)
+        log(f"[train] {name}: {detail} {'ok' if cond else 'FAIL'}")
+
+    def expect_launches(path, want):
+        got = res["launches"][path]
+        want = {k: want.get(k, 0) if on_card else 0 for k in ALL_KERNELS}
+        check(f"launches of {path}", got == want, f"{got}")
+
+    def finite(state, losses):
+        return (all(bool(torch.isfinite(v).all()) for v in losses.values())
+                and all(bool(torch.isfinite(p).all()) for p in state.trainables.parameters()))
+
+    tot_itr = cfg.end_epoch * len(frames)
+    opt = make_optimizer(trainables, cfg, float(scene_aux.cam_dist_radius), tot_itr)
+    state = tl.init_train_state(trainables, scene_aux, opt)
+
+    # ---- 1. the trainer from the default settings, as a user's run starts:
+    # the governor must end in pair-major compositing and lose no pair
+    growths = []
+    gov = tl.RasterCapacityGovernor(
+        api.RasterizeSettings(**(start_kw or {})), patience=1,
+        log=lambda m: (growths.append(m), log(f"[train] governor: {m}")), **(governor_kw or {}))
+    model_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    reset_launches()
+    t0 = time.perf_counter()
+    run = train_loop(state, bundle, frames, opt, cfg, governor=gov, model_dir=model_dir, seed=0)
+    sync()
+    res["launches"]["train"] = read_launches()
+    state = run.state
+    hist = run.history
+    log(f"[train] train_loop: {len(hist)} steps in {time.perf_counter() - t0:.2f} s, totals "
+        f"{[round(h['total'], 4) for h in hist]}, truncated "
+        f"{[int(h['raster_truncated']) for h in hist]}, dropped pairs "
+        f"{[int(h['raster_dropped_pairs']) for h in hist]}")
+    n_dense = sum(1 for m in growths if "max_per_tile" in m)  # steps before the switch
+    check("governor", run.settings.pair_major and hist[-1]["raster_truncated"] == 0
+          and hist[-1]["raster_dropped_pairs"] == 0 and len(growths) >= 1,
+          f"{len(growths)} growths, ends with {run.settings}")
+    expect_launches("train", {
+        "composite_tiles_fwd_cm": 5 * n_dense, "composite_tiles_bwd_cm": 5 * n_dense,
+        "composite_pairs_fwd_rg": 5 * (len(hist) - n_dense),
+        "composite_pairs_bwd_rg": 5 * (len(hist) - n_dense)})
+    check("train_loop state", state.itr == len(hist) == tot_itr and state.opt_state.count == tot_itr
+          and latest_checkpoint(model_dir) is not None
+          and latest_checkpoint(model_dir).endswith(f"snapshot_{cfg.end_epoch - 1}.npz"),
+          f"itr {state.itr}, step count {state.opt_state.count}, newest snapshot "
+          f"{os.path.basename(latest_checkpoint(model_dir) or '-')}")
+    settings = run.settings
+
+    # ---- 2. further steps on one frame with a fixed background
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    totals, step_ms = [], []
+    for _ in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        state, losses = tl.train_step(state, bundle, frame, opt, cfg,
+                                      is_warmup=cfg.is_warmup(state.itr), settings=settings, bg=bg)
+        sync()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        totals.append(float(losses["total"]))
+        res["ok"] &= finite(state, losses)
+    check("steps on one frame", totals[-1] < totals[0] and state.itr == tot_itr + steps
+          and float(state.scene_aux.track_cnt.sum()) > 0 and res["ok"],
+          f"totals {[round(x, 5) for x in totals]}, itr {state.itr}, tracked rows "
+          f"{int((state.scene_aux.track_cnt > 0).sum())}, every loss and parameter finite")
+    if on_card:
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"[train] peak memory allocated over {steps} steps "
+            f"{res['peak_bytes'] / 2**30:.3f} GiB")
+    # the split of a step, on a copy (the pieces advance the state they get)
+    probe = copy.deepcopy(state)
+    t_lg = t_up = t_ts = 0.0
+    for it in range(timing_iters + 1):
+        sync()
+        t0 = time.perf_counter()
+        _, out, grads, g2d = tl.loss_and_grads(probe.trainables, probe.scene_aux, bundle, frame,
+                                               bg, cfg, cfg.is_warmup(probe.itr), False, settings)
+        sync()
+        t1 = time.perf_counter()
+        opt.update(grads, probe.opt_state, probe.trainables)
+        sync()
+        t2 = time.perf_counter()
+        sc.track_stats(sc.SceneState(probe.trainables.scene, probe.scene_aux), g2d,
+                       out.scene_is_vis, out.scene_radius, img_shape=(H, W))
+        sync()
+        t3 = time.perf_counter()
+        if it:  # iteration 0 warms up
+            t_lg, t_up, t_ts = t_lg + t1 - t0, t_up + t2 - t1, t_ts + t3 - t2
+    n = max(timing_iters, 1)
+    res["step_split"] = {"train_step_ms": sum(step_ms[1:]) / max(len(step_ms) - 1, 1),
+                         "loss_and_grads_ms": 1e3 * t_lg / n, "optimizer_update_ms": 1e3 * t_up / n,
+                         "track_stats_ms": 1e3 * t_ts / n}
+    log(f"[train] per step ({'pair-major' if settings.pair_major else 'dense'}): "
+        f"{res['step_split']}")
+    if on_card:
+        res["profile"] = profile_frame(
+            lambda: tl.train_step(probe, bundle, frame, opt, cfg, is_warmup=False,
+                                  settings=settings, bg=bg),
+            top=12, what="one pair-major train_step")
+    del probe, out, grads, g2d
+
+    # ---- 3. the same step through kernel_v=2, from the state those steps left
+    ppg, dense_k, (_, _, both) = find_capacities(state.trainables, state.scene_aux, bundle, frame,
+                                                 cfg, "train")
+    v1 = api.RasterizeSettings(max_per_tile=dense_k, pairs_per_gaussian=ppg)
+    v2 = dataclasses.replace(v1, kernel_v=2)
+    lg = lambda s: tl.loss_and_grads(state.trainables, state.scene_aux, bundle, frame, bg, cfg,
+                                     False, False, s)
+    tot1, out1, g1, m1 = lg(v1)
+    tot2, out2, g2, m2 = lg(v2)
+    rel = abs(float(tot2) - float(tot1)) / abs(float(tot1))
+    leaf_err = {k: own_scale_err(g2[k], g1[k]) for k in g1}
+    worst = max(leaf_err.items(), key=lambda kv: kv[1])
+    m_err = own_scale_err(m2, m1)
+    # the same two evaluations again: how far each path is from itself, run
+    # to run (the backward kernels and index_add_ sum with atomics)
+    again = {"kernel_v=1": (g1, lg(v1)[2]), "kernel_v=2": (g2, lg(v2)[2])}
+    spread = {n: {k: own_scale_err(b[k], a[k]) for k in a} for n, (a, b) in again.items()}
+    del again
+    over = sorted(((k, e) for k, e in leaf_err.items() if e > 1e-3), key=lambda kv: -kv[1])
+    log(f"[train] kernel_v=2 vs kernel_v=1, leaves over 1e-3 of their own max ({len(over)} of "
+        f"{len(leaf_err)}): " + ", ".join(
+            f"{k} {e:.2e} (max |g| {float(g1[k].abs().max()):.2e}; run to run: v1 "
+            f"{spread['kernel_v=1'][k]:.1e}, v2 {spread['kernel_v=2'][k]:.1e})" for k, e in over))
+    for n, sp in spread.items():
+        k = max(sp, key=sp.get)
+        log(f"[train] {n} against itself, run to run: worst leaf {k} {sp[k]:.3e} of its own max")
+    check("kernel_v=2 vs kernel_v=1 (dense) from the same state",
+          rel <= 1e-4 and worst[1] <= v2_leaf_tol and m_err <= 1e-3
+          and int(out2.raster_truncated) == int(out2.raster_dropped_pairs) == 0,
+          f"totals {float(tot2):.6f} vs {float(tot1):.6f} (relative {rel:.2e}, limit 1e-4); "
+          f"worst gradient leaf {worst[0]} {worst[1]:.3e} of its own max (limit {v2_leaf_tol}), "
+          f"g_mean2d {m_err:.3e} (limit 1e-3); nothing truncated at max_per_tile={dense_k}")
+    del out1, out2, g1, g2
+    fork = copy.deepcopy(state)
+    reset_launches()
+    v2_ms = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        fork, losses = tl.train_step(fork, bundle, frame, opt, cfg, is_warmup=False, settings=v2,
+                                     bg=bg)
+        sync()
+        v2_ms.append(1e3 * (time.perf_counter() - t0))
+        res["ok"] &= finite(fork, losses)
+    res["launches"]["train_v2"] = read_launches()
+    expect_launches("train_v2", {"composite_tiles_fwd_v2": 10, "composite_tiles_bwd_v2": 10})
+    log(f"[train] kernel_v=2 train_step ms: {[round(x, 2) for x in v2_ms]}")
+    res["train_v2_step_ms"] = v2_ms[-1]
+    del fork
+
+    # kernels 3-6 against their plain versions on that step's scene + human
+    # windows, under the cotangents an L1 image loss over the background, a
+    # mask mean and a depth mean send back (accum AND tfinal get one)
+    with torch.no_grad():
+        args = (both.mean_3d, both.scale, both.rotation, both.opacity, both.rgb, both.live,
+                frame.cam, (H, W))
+        in1, in2 = api.prepare(*args, v1), api.prepare(*args, v2)
+    counts, origins, tile = in2.binning.tile_counts, in2.origins, in2.tile_shape
+    packed, color = in2.rows.contiguous(), in2.color
+    rows_g = in1.rows[:, :8].transpose(1, 2).contiguous()
+    del in1
+    th, tw = tile
+    ny, nx = in2.binning.num_tiles
+    ones = torch.ones(3, device=device)
+
+    def cotangents(accum, tfinal):
+        la, lt = accum.clone().requires_grad_(True), tfinal.clone().requires_grad_(True)
+        full = torch.cat([la[..., 0:3] + lt * ones, la[..., 3:4], 1.0 - lt], dim=-1)
+        image = (full.reshape(ny, nx, th, tw, 5).permute(0, 2, 1, 3, 4)
+                 .reshape(ny * th, nx * tw, 5)[:H, :W])
+        loss = ((image[..., 0:3] - frame.img.permute(1, 2, 0)).abs().mean()
+                + image[..., 4].mean() + image[..., 3].mean())
+        return tuple(x.contiguous() for x in torch.autograd.grad(loss, (la, lt)))
+
+    # the row-major boundary with global rows and origins: the entry point of
+    # kernels 5 and 6, forward and backward, counted as a path of its own
+    reset_launches()
+    for o in (None, origins):
+        q = (packed if o is None else rows_g).clone().requires_grad_(True)
+        c = color.clone().requires_grad_(True)
+        acc, tf = api._CompositeRowMajor.apply(q, c, counts, o, tile, 1)
+        torch.autograd.grad(acc.sum() + tf.sum(), (q, c))
+    sync()
+    res["launches"]["rowmajor_boundary"] = read_launches()
+    expect_launches("rowmajor_boundary", {"composite_tiles_fwd": 2, "composite_tiles_bwd": 2})
+    del q, c, acc, tf
+
+    stat = {}
+    live_rows = int(torch.clamp(counts.long(), max=packed.shape[1]).sum())
+    T, P = packed.shape[0], th * tw
+    cases = (("composite_tiles_fwd_v2", "composite_tiles_bwd_v2", packed, None),
+             ("composite_tiles_fwd", "composite_tiles_bwd", rows_g, origins))
+    for fwd_name, bwd_name, quad, o in cases:
+        fwd, bwd = getattr(kn, fwd_name), getattr(kn, bwd_name)
+        extra = () if fwd_name.endswith("v2") else (o,)
+        got_f = fwd(quad, color, counts, tile, *extra)
+        sync()
+        t0 = time.perf_counter()
+        accum_p, tfinal_p, visits = kn.composite_rm_plain_with_visits(quad, color, counts, tile, o)
+        sync()
+        plain_f_ms = 1e3 * (time.perf_counter() - t0)
+        e_f = rm_max_err(got_f, (accum_p, tfinal_p))
+        check(f"{fwd_name} vs plain (scene+human windows)", within(e_f, TOL), f"{e_f}")
+        cot = cotangents(*got_f)
+        got_b = bwd(quad, color, counts, *cot, *got_f, tile, *extra)
+        sync()
+        t0 = time.perf_counter()
+        dq_p, dc_p, bstats = kn.composite_rm_bwd_plain_with_stats(quad, color, counts, *cot,
+                                                                   accum_p, tfinal_p, tile, o)
+        sync()
+        plain_b_ms = 1e3 * (time.perf_counter() - t0)
+        e_b = rm_grad_rows(got_b, (dq_p, dc_p))
+        res["ok"] &= e_b["ok"]
+        log_grad_rows("train", f"{bwd_name} (scene+human windows)", e_b)
+        past = torch.arange(quad.shape[1], device=device)[None, :] >= counts[:, None]
+        check(f"{bwd_name} dead slots", not bool(got_b[0][past].any() or got_b[1][past].any()),
+              "exact zeros at and past each tile's count")
+        n_visits = int(visits.sum())
+        f_ops = n_visits * OPS_PER_VISIT / PEAK_F32_FLOPS
+        f_bytes = (live_rows * RM_BYTES_PER_ROW + T * P * BYTES_PER_PIXEL) / PEAK_BYTES
+        b_ops = (bstats.visits * OPS_PER_VISIT + bstats.hits * OPS_PER_HIT) / PEAK_F32_FLOPS
+        b_bytes = (2 * live_rows * RM_BYTES_PER_ROW + T * P * BWD_BYTES_PER_PIXEL) / PEAK_BYTES
+        stat[fwd_name] = {"bound_ms": 1e3 * max(f_ops, f_bytes),
+                          "bound_by": "operations" if f_ops >= f_bytes else "bytes",
+                          "plain_ms": plain_f_ms, "max_abs_err": max(e_f.values())}
+        stat[bwd_name] = {"bound_ms": 1e3 * max(b_ops, b_bytes),
+                          "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+                          "plain_ms": plain_b_ms, "max_abs_err": e_b["max_abs_err"],
+                          "max_row_rel_err": e_b["max_row_rel_err"]}
+        log(f"[train] {fwd_name}/{bwd_name}: {live_rows} live rows, {n_visits} visits, backward "
+            f"{bstats.visits} visits and {bstats.hits} contributing; bounds "
+            f"{stat[fwd_name]['bound_ms']:.6f} ms ({stat[fwd_name]['bound_by']}; bytes "
+            f"{1e3 * f_bytes:.6f}) / {stat[bwd_name]['bound_ms']:.6f} ms "
+            f"({stat[bwd_name]['bound_by']}; bytes {1e3 * b_bytes:.6f})")
+        if on_card:
+            ff = lambda: fwd(quad, color, counts, tile, *extra)
+            fb = lambda: bwd(quad, color, counts, *cot, *got_f, tile, *extra)
+            cuda_ms(ff, 2), cuda_ms(fb, 2)  # warm-up
+            stat[fwd_name]["ms"], stat[bwd_name]["ms"] = cuda_ms(ff, 10), cuda_ms(fb, 10)
+            for k in (fwd_name, bwd_name):
+                log(f"[train] {k}: {stat[k]['ms']:.4f} ms, plain {stat[k]['plain_ms']:.2f} ms, "
+                    f"bound {stat[k]['bound_ms']:.6f} ms ({stat[k]['bound_by']})")
+        del got_f, got_b, accum_p, tfinal_p, dq_p, dc_p, cot
+    del both, packed, color, rows_g, in2, counts, origins
+
+    # ---- 4. densify/prune at an iteration where it fires, opacity reset,
+    # capacity growth
+    def adjust(st, seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        return tl.maybe_adjust_gaussians(st, cfg.densify_start_itr + cfg.densify_interval, cfg,
+                                         generator=g)
+
+    aux = state.scene_aux
+    grad = torch.where(aux.track_cnt > 0, aux.xyz_grad_accum / aux.track_cnt.clamp(min=1), 0.0)
+    n_hot = int((aux.live & (grad >= cfg.densify_grad_thr)).sum())
+    log(f"[train] tracked statistics: {n_hot} live rows at or above densify_grad_thr="
+        f"{cfg.densify_grad_thr} (largest mean gradient {float(grad.max()):.3e})")
+    if n_hot == 0:
+        log("[train] the threshold selects nothing at these random weights: seeding the "
+            "statistics of every tenth live row above it")
+        pick = aux.live & (torch.arange(aux.live.shape[0], device=device) % 10 == 0)
+        state = state._replace(scene_aux=dataclasses.replace(
+            aux, xyz_grad_accum=torch.where(pick, 1.0, aux.xyz_grad_accum),
+            track_cnt=torch.where(pick, 1.0, aux.track_cnt)))
+    # the same pass on a copy with the same seed gives the reset mask
+    twin = copy.deepcopy(state)
+    mask = sc.densify_and_prune(
+        sc.SceneState(twin.trainables.scene, twin.scene_aux), cfg, False,
+        generator=torch.Generator(device=device).manual_seed(11)).reset_mask
+    del twin
+    live_before = state.scene_aux.live.clone()
+    had = float(state.opt_state.mu["scene.mean"][mask].abs().sum())
+    state, stats = adjust(state, 11)
+    stats = {k: int(v) for k, v in stats.items()}
+    log(f"[train] densify at itr {cfg.densify_start_itr + cfg.densify_interval}: {stats}")
+    granted = stats["n_cloned"] + 2 * stats["n_split"] - stats["n_dropped"]
+    kept = int((live_before & ~mask).sum())
+    zeroed = all(not bool(m[k][mask].any()) for m in (state.opt_state.mu, state.opt_state.nu)
+                 for k in m if k.startswith("scene."))
+    check("densify", stats["n_cloned"] + stats["n_split"] > 0
+          and stats["n_live"] == int(state.scene_aux.live.sum()) == kept + granted and zeroed
+          and (had > 0 or stats["n_split"] + stats["n_pruned"] == 0)
+          and not bool(state.scene_aux.track_cnt.any()),
+          f"live {int(live_before.sum())} -> {stats['n_live']} = {kept} untouched + {granted} "
+          f"granted; both moments of the {int(mask.sum())} reset rows zero (|mu| there was "
+          f"{had:.3e}); statistics restarted")
+    state, losses = tl.train_step(state, bundle, frame, opt, cfg, is_warmup=False,
+                                  settings=settings, bg=bg)
+    check("step after densify", finite(state, losses), f"total {float(losses['total']):.5f}")
+
+    state = tl.opacity_reset_step(state)
+    op = torch.sigmoid(state.trainables.scene.opacity.detach())[state.scene_aux.live]
+    check("opacity reset", bool((op <= 0.0101).all())
+          and not bool(state.opt_state.mu["scene.opacity"].any())
+          and not bool(state.opt_state.nu["scene.opacity"].any())
+          and bool(state.opt_state.mu["scene.mean"].any()),
+          f"largest live opacity {float(op.max()):.5f}, opacity moments zero")
+    count = state.opt_state.count
+    state = tl.grow_scene_capacity(state, grow_to)
+    C = state.trainables.scene.mean.shape[0]
+    check("capacity growth", C == grow_to == state.scene_aux.live.shape[0]
+          and state.opt_state.mu["scene.feature_rest"].shape[0] == grow_to
+          and state.opt_state.count == count and int(state.scene_aux.live.sum()) == stats["n_live"],
+          f"scene rows {C}, moments padded, step count {count} kept")
+    state, losses = tl.train_step(state, bundle, frame, opt, cfg, is_warmup=False,
+                                  settings=settings, bg=bg)
+    check("step after growth", finite(state, losses)
+          and not bool(state.opt_state.mu["scene.mean"][~state.scene_aux.live].any()),
+          f"total {float(losses['total']):.5f}; dead rows got no gradient")
+
+    # ---- 5. a checkpoint written and read back on the device
+    path = save_checkpoint(model_dir, state, epoch=99)
+    loaded, epoch = load_checkpoint(latest_checkpoint(model_dir), cfg, device=device)
+    a, b = convert.train_state_to_numpy(state), convert.train_state_to_numpy(loaded)
+    same = epoch == 99 and all(a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+                               and (a[k] == b[k]).all() for k in a)
+    keep = copy.deepcopy(state)
+    _, l_a = tl.train_step(keep, bundle, frame, opt, cfg, is_warmup=False, settings=settings,
+                           bg=bg)
+    _, l_b = tl.train_step(loaded, bundle, frame, opt, cfg, is_warmup=False, settings=settings,
+                           bg=bg)
+    rel = abs(float(l_a["total"]) - float(l_b["total"])) / abs(float(l_a["total"]))
+    check("checkpoint", same and rel <= 1e-5 and loaded.trainables.scene.mean.device.type == device,
+          f"{len(a)} leaves bit for bit ({os.path.getsize(path) / 2**20:.1f} MiB), next step's "
+          f"total {float(l_b['total']):.6f} vs {float(l_a['total']):.6f} (relative {rel:.2e}, "
+          f"limit 1e-5)")
+    del keep, loaded, a, b
+    for f in os.listdir(model_dir):
+        os.remove(os.path.join(model_dir, f))
+    os.rmdir(model_dir)
+
+    res["kernel_stats"] = stat
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -909,23 +1427,40 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {lib}: {line.strip()}")
 
+    # ``--phases a,b`` runs a part (random, goldens, animate, frame, train) and
+    # prints no result line: the contract needs every phase
+    only = None
+    if "--phases" in sys.argv[1:]:
+        only = set(sys.argv[sys.argv.index("--phases") + 1].split(","))
+    want = lambda name: only is None or name in only
     ok = True
-    rnd = phase_kernels_random("cuda")
-    ok &= rnd["ok"]
-    ok &= phase_goldens("cuda")
-    anim = phase_animate("cuda")
-    ok &= anim["ok"]
-    frm = phase_frame("cuda")
-    ok &= frm["ok"]
+    rnd = phase_kernels_random("cuda") if want("random") else None
+    ok &= rnd is None or rnd["ok"]
+    ok &= not want("goldens") or phase_goldens("cuda")
+    anim = phase_animate("cuda") if want("animate") else None
+    ok &= anim is None or anim["ok"]
+    frm = phase_frame("cuda") if want("frame") else None
+    ok &= frm is None or frm["ok"]
+    trn = phase_train("cuda") if want("train") else None
+    ok &= trn is None or trn["ok"]
+    if only is not None:
+        log(f"chip_smoke: phases {sorted(only)} {'passed' if ok else 'FAILED'}; a partial run "
+            f"prints no result line")
+        return 0 if ok else 1
 
     kernels = []
-    for name in FWD_KERNELS + BWD_KERNELS:
-        fwd = name in FWD_KERNELS
-        # forward kernels: measured on the animate frame's windows; backward
-        # kernels: on the train-mode frame's scene+human render
-        st = (anim if fwd else frm)["kernel_stats"][name]
+    for name in ALL_KERNELS:
+        fwd = name in FWD_KERNELS + RM_FWD_KERNELS
+        # channel-major and pair-major forward kernels: measured on the animate
+        # frame's windows, their backward kernels on the train-mode frame's
+        # scene+human render; the row-major kernels on the trainer's
+        if name in RM_FWD_KERNELS + RM_BWD_KERNELS:
+            st = trn["kernel_stats"][name]
+        else:
+            st = (anim if fwd else frm)["kernel_stats"][name]
         by_path = {"animate": anim["launches"][name],
-                   **{f"frame_{k}": v[name] for k, v in frm["launches"].items()}}
+                   **{f"frame_{k}": v[name] for k, v in frm["launches"].items()},
+                   **{k: v[name] for k, v in trn["launches"].items()}}
         entry = {
             "name": name, "route": "cuda", "source": KERNEL_SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),

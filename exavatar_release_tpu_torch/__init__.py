@@ -7,18 +7,25 @@ JAX package. Every Pallas TPU kernel on a ported path becomes a CUDA C++
 kernel for Hopper (``csrc/``), built with nvcc at first use and bound with
 ctypes; each has a plain PyTorch twin that CPU tensors run through.
 
-Subpackages (ported so far: the animate render path and the differentiable
-frame, i.e. one train step up to its gradients)
+Subpackages (ported so far: the animate render path, the differentiable
+frame and the whole train step with its trainer loop)
 -----------
 core      : rotations, cameras, geometry, spherical harmonics
 models    : SMPL-X body model (LBS, FK, subdivision, prior, synthetic assets)
 nn        : Linear -> GroupNorm -> ReLU MLP
 ops       : grid sampling, KNN, the differentiable 3DGS rasterizer and its
-            kernels, the face-mesh rasterizer, SSIM/PSNR, LPIPS
-avatar    : human and scene Gaussians, per-frame poses, losses,
-            ``forward_frame``, JAX weight import
-train     : ``loss_and_grads`` — the loss of one frame and its gradients
-apps      : ``render_motion`` — animate a trained avatar with new poses
+            eight kernels (channel-major, pair-major and row-major, three
+            libraries under ``csrc/``), the face-mesh rasterizer, SSIM/PSNR,
+            LPIPS
+avatar    : human and scene Gaussians (with densify/prune and the opacity
+            reset), per-frame poses, losses, ``forward_frame``, import and
+            export of JAX weights and of the whole train state
+train     : ``loss_and_grads`` and ``train_step``, Adam with named groups and
+            schedules, densification cadence, the rasterizer's capacity
+            governor, scene capacity growth, checkpoints in the JAX package's
+            npz layout
+apps      : ``render_motion`` — animate a trained avatar with new poses;
+            ``train_loop`` — epochs of train steps over given frames
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,1 @@
-"""Applications on the avatar: motion rendering."""
+"""Applications on the avatar: motion rendering and the training loop."""

@@ -11,10 +11,17 @@ numpy arrays (its field names; each MLP an ``MLPParams``-like 4-tuple of
 ``HumanGaussians``. JAX Linear weights are (C_in, C_out); ``nn.Linear``
 wants (C_out, C_in), so they are transposed. An empty GroupNorm scale marks a
 layer without a norm.
+
+``train_state_from_jax`` / ``train_state_to_numpy`` carry a whole
+``TrainState`` (trainables, both Adam moments, the step count, the scene's aux
+and the iteration) as the flat list of leaves that
+``jax.tree_util.tree_flatten`` gives for the JAX package's ``TrainState``:
+``TRAIN_STATE_LEAVES`` names them in that order. It is the layout of the
+checkpoints of both packages.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,16 +63,18 @@ def _scene_params(params: Mapping, device) -> SceneParams:
                           ("mean", "scale", "rotation", "feature_dc", "feature_rest", "opacity")})
 
 
-def scene_from_jax(params: Mapping, aux: Mapping, device="cuda") -> Tuple[SceneParams, SceneAux]:
-    """``SceneParams`` and ``SceneAux`` from dicts of their fields."""
-    p = _scene_params(params, device)
-    a = SceneAux(
+def _scene_aux(aux: Mapping, device) -> SceneAux:
+    return SceneAux(
         live=torch.from_numpy(np.array(aux["live"], dtype=bool)).to(device),
         **{k: _f32(aux[k], device) for k in
            ("radius_max", "xyz_grad_accum", "track_cnt", "active_sh_degree", "cam_dist_trans",
             "cam_dist_radius")},
     )
-    return p, a
+
+
+def scene_from_jax(params: Mapping, aux: Mapping, device="cuda") -> Tuple[SceneParams, SceneAux]:
+    """``SceneParams`` and ``SceneAux`` from dicts of their fields."""
+    return _scene_params(params, device), _scene_aux(aux, device)
 
 
 def param_frames_from_jax(frames: Mapping, device="cuda") -> SMPLXParamFrames:
@@ -104,3 +113,130 @@ def trainables_from_jax(scene_params: Mapping, human_tree: Mapping, frames: Mapp
     human.load_state_dict(sd)
     return AvatarTrainables(_scene_params(scene_params, device), human,
                             param_frames_from_jax(frames, device))
+
+
+# --------------------------------------------------------------------------
+# the whole train state, as the JAX package flattens it
+# --------------------------------------------------------------------------
+
+_SCENE_FIELDS = ("mean", "scale", "rotation", "feature_dc", "feature_rest", "opacity")
+_FRAME_FIELDS = ("root_pose", "body_pose", "jaw_pose", "leye_pose", "reye_pose", "lhand_pose",
+                 "rhand_pose", "expr", "trans")
+_AUX_FIELDS = ("live", "radius_max", "xyz_grad_accum", "track_cnt", "active_sh_degree",
+               "cam_dist_trans", "cam_dist_radius")
+# the JAX HumanParams' fields in order; for an MLP, whether each layer has a
+# GroupNorm (a layer without one holds a zero-size placeholder leaf there)
+_HUMAN_FIELDS = (
+    ("triplane", None), ("triplane_face", None),
+    ("geo_net", (True, True, True)), ("mean_offset_net", (False,)), ("scale_net", (False,)),
+    ("geo_offset_net", (True, True, True)), ("mean_offset_offset_net", (False,)),
+    ("scale_offset_net", (False,)), ("rgb_net", (True, True, True, False)),
+    ("rgb_offset_net", (True, True, True, False)),
+    ("shape_param", None), ("joint_offset", None),
+)
+
+
+def _trainable_leaves() -> List[Tuple[str, Optional[str], bool]]:
+    """(JAX leaf path, the port's parameter name or None for a placeholder,
+    whether the array is transposed between the two)."""
+    out = [(f"scene.{f}", f"scene.{f}", False) for f in _SCENE_FIELDS]
+    for name, gn in _HUMAN_FIELDS:
+        if gn is None:
+            out.append((f"human.{name}", f"human.{name}", False))
+            continue
+        n = len(gn)
+        out += [(f"human.{name}.weights.{i}", f"human.{name}.linears.{i}.weight", True)
+                for i in range(n)]
+        out += [(f"human.{name}.biases.{i}", f"human.{name}.linears.{i}.bias", False)
+                for i in range(n)]
+        for field, attr in (("gn_scales", "weight"), ("gn_biases", "bias")):
+            out += [(f"human.{name}.{field}.{i}",
+                     f"human.{name}.norms.{i}.{attr}" if gn[i] else None, False)
+                    for i in range(n)]
+    out += [(f"frames.{f}", f"frames.{f}", False) for f in _FRAME_FIELDS]
+    return out
+
+
+_TRAINABLE_LEAVES = _trainable_leaves()
+
+# every leaf of the JAX package's TrainState, in tree_flatten's order:
+# trainables, (ScaleByAdamState(count, mu, nu), GroupLRState(count)), the
+# scene's aux, itr
+TRAIN_STATE_LEAVES: Tuple[str, ...] = tuple(
+    [f"trainables.{j}" for j, _, _ in _TRAINABLE_LEAVES]
+    + ["opt_state.0.count"]
+    + [f"opt_state.0.{m}.{j}" for m in ("mu", "nu") for j, _, _ in _TRAINABLE_LEAVES]
+    + ["opt_state.1.count"]
+    + [f"scene_aux.{f}" for f in _AUX_FIELDS]
+    + ["itr"]
+)
+
+
+def _tree_to_numpy(named: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, np.ndarray]:
+    out = {}
+    for j, name, transpose in _TRAINABLE_LEAVES:
+        if name is None:
+            out[prefix + j] = np.zeros((0,), np.float32)
+            continue
+        a = named[name].detach().cpu().numpy()
+        out[prefix + j] = np.ascontiguousarray(a.T) if transpose else a.copy()
+    return out
+
+
+def train_state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """Every leaf of a ``train.loop.TrainState`` as numpy, keyed and ordered by
+    ``TRAIN_STATE_LEAVES``, in the JAX package's shapes and dtypes."""
+    out = _tree_to_numpy(dict(state.trainables.named_parameters()), "trainables.")
+    count = np.asarray(state.opt_state.count, np.int32)
+    out["opt_state.0.count"] = count
+    out.update(_tree_to_numpy(state.opt_state.mu, "opt_state.0.mu."))
+    out.update(_tree_to_numpy(state.opt_state.nu, "opt_state.0.nu."))
+    out["opt_state.1.count"] = count
+    for f in _AUX_FIELDS:
+        out[f"scene_aux.{f}"] = getattr(state.scene_aux, f).cpu().numpy()
+    out["itr"] = np.asarray(state.itr, np.int32)
+    assert tuple(out) == TRAIN_STATE_LEAVES
+    return out
+
+
+def _tree_from_numpy(leaves: Mapping[str, np.ndarray], prefix: str,
+                     device) -> Dict[str, torch.Tensor]:
+    out = {}
+    for j, name, transpose in _TRAINABLE_LEAVES:
+        a = np.array(leaves[prefix + j], dtype=np.float32)
+        if name is None:
+            if a.size:
+                raise ValueError(f"{prefix + j}: expected a zero-size placeholder")
+            continue
+        out[name] = torch.from_numpy(np.ascontiguousarray(a.T) if transpose else a).to(device)
+    return out
+
+
+def train_state_from_jax(leaves: Union[Sequence[np.ndarray], Mapping[str, np.ndarray]],
+                         cfg: AvatarConfig, device="cuda"):
+    """A ``train.loop.TrainState`` from the leaves of the JAX package's (a
+    sequence in ``tree_flatten``'s order, or a mapping keyed by
+    ``TRAIN_STATE_LEAVES``). The two step counts must agree: the port keeps
+    one."""
+    from ..train.loop import TrainState
+    from ..train.optim import AdamState
+
+    if not isinstance(leaves, Mapping):
+        if len(leaves) != len(TRAIN_STATE_LEAVES):
+            raise ValueError(f"{len(leaves)} leaves, expected {len(TRAIN_STATE_LEAVES)}")
+        leaves = dict(zip(TRAIN_STATE_LEAVES, leaves))
+    named = _tree_from_numpy(leaves, "trainables.", device)
+    pick = lambda head, fields: {f: named[f"{head}.{f}"] for f in fields}
+    human = HumanGaussians(cfg, named["human.shape_param"].shape[0],
+                           named["human.joint_offset"].shape[0], device=device)
+    human.load_state_dict({k[len("human."):]: v for k, v in named.items()
+                           if k.startswith("human.")})
+    trainables = AvatarTrainables(SceneParams(**pick("scene", _SCENE_FIELDS)), human,
+                                  SMPLXParamFrames(**pick("frames", _FRAME_FIELDS)))
+    counts = {int(leaves["opt_state.0.count"]), int(leaves["opt_state.1.count"])}
+    if len(counts) != 1:
+        raise ValueError(f"the two optimizer step counts differ: {sorted(counts)}")
+    opt = AdamState(mu=_tree_from_numpy(leaves, "opt_state.0.mu.", device),
+                    nu=_tree_from_numpy(leaves, "opt_state.0.nu.", device), count=counts.pop())
+    aux = _scene_aux({f: leaves[f"scene_aux.{f}"] for f in _AUX_FIELDS}, device)
+    return TrainState(trainables, opt, aux, int(leaves["itr"]))

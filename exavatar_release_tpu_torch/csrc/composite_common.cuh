@@ -1,5 +1,5 @@
 // What the forward and the backward compositing kernels must share to the
-// last bit (composite.cu, composite_bwd.cu): the block size, renderCUDA's
+// last bit (composite.cu, composite_bwd.cu, composite_rm.cu): the block size, renderCUDA's
 // thresholds, the staging of rows in shared memory, and the skip, clamp
 // and termination rules of one Gaussian at one pixel. The backward replays the forward from its saved
 // output, and its `A_p - P_i` cancels only if both take the same skip and
@@ -55,6 +55,19 @@ __device__ __forceinline__ bool reaches(float (*s)[kBlock], int j, float px, flo
   const float q = log_op - 0.5f * (A * (dx * dx) + C * (dy * dy)) - B * (dx * dy);
   alpha_un = expf(q);
   return (q <= log_op) && (alpha_un >= kAlphaMin);
+}
+
+// The same test for a row of pre-packed tile-local coefficients, staged as
+// s[.][j] = [c0, c1, c2, c3, c4, c5, r, g, b, depth, log_op], at the
+// tile-local pixel (lx, ly):
+//   q = c0 + c1 lx + c2 ly + c3 lx^2 + c4 lx ly + c5 ly^2
+// summed left to right, the order of the plain PyTorch version.
+__device__ __forceinline__ bool reaches_packed(float (*s)[kBlock], int j, float lx, float ly,
+                                               float& alpha_un) {
+  const float q = s[0][j] + s[1][j] * lx + s[2][j] * ly + s[3][j] * (lx * lx) +
+                  s[4][j] * (lx * ly) + s[5][j] * (ly * ly);
+  alpha_un = expf(q);
+  return (q <= s[10][j]) && (alpha_un >= kAlphaMin);
 }
 
 // alpha = min(0.99, exp(q))

@@ -22,6 +22,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 LIBRARIES: Dict[str, tuple] = {
     "composite": ("csrc/composite.cu",),
     "composite_bwd": ("csrc/composite_bwd.cu",),
+    "composite_rm": ("csrc/composite_rm.cu",),
 }
 # included by the sources above; hashed into every library's name
 HEADERS = ("csrc/composite_common.cuh",)

@@ -11,7 +11,7 @@ Pipeline:
 
 Gradients: projection, the gather (``index_select``, whose transpose is
 ``index_add_``) and the image assembly are plain PyTorch under autograd. The
-compositing kernels sit in two ``torch.autograd.Function``s whose backward
+compositing kernels sit in three ``torch.autograd.Function``s whose backward
 is the backward kernel (its plain version on CPU tensors), as the JAX
 package wraps its Pallas kernels in ``custom_vjp``; the background's
 gradient, sum of g_img (1 - mask), is plain PyTorch there too. With
@@ -22,8 +22,14 @@ renderCUDA's unclamped rule. Under ``torch.no_grad()`` nothing is saved.
 
 ``prepare`` runs everything before the compositing kernel and ``composite``
 runs the kernel, so a caller can time the two apart; ``rasterize`` is the
-two in a row. The mesh/shard settings wait for the ``parallel/`` slice and
-``kernel_v=2`` for its kernels.
+two in a row. The mesh/shard settings wait for the ``parallel/`` slice.
+
+``kernel_v=2`` takes the dense path through the row-major kernels on
+pre-packed tile-local coefficients (``pack_tile_quads``), with the background
+composite and the image assembly in plain PyTorch, as in the JAX package. Of
+its settings, ``prefix_bf16``, ``composite_sub_fwd`` / ``composite_sub_bwd``
+and ``interpret`` shaped the TPU kernels' matrix-unit prefixes, row groups
+and interpreter and have no counterpart here, so they get no field.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ from .binning import (
     bin_gaussians_ragged,
     tile_grid,
 )
-from .preprocess import ScreenGaussians, project_gaussians
+from .preprocess import ScreenGaussians, pack_tile_quads, project_gaussians
 
 BACKENDS = ("cuda", "ref")
 
@@ -60,6 +66,12 @@ class RasterizeSettings:
     # versions on CPU tensors); "ref": the dense plain forward everywhere,
     # differentiated by autograd, as in JAX
     backend: str = "cuda"
+    # dense path's kernel generation. 1: channel-major windows of global
+    # conic rows, background composited in the kernel. 2: row-major
+    # pre-packed tile-local coefficients; its image differs from 1's at
+    # ~1e-5 (another float32 expression for q). Ignored by pair_major and by
+    # backend "ref"
+    kernel_v: int = 1
     # ragged pair-major compositing: no per-tile capacity, no truncation
     pair_major: bool = False
     # (gaussian, tile) pair budget; <= 0 means pairs_per_gaussian * N.
@@ -70,6 +82,8 @@ class RasterizeSettings:
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {self.backend!r}")
+        if self.kernel_v not in (1, 2):
+            raise ValueError(f"kernel_v must be 1 or 2, got {self.kernel_v!r}")
 
     def ragged_chunk(self) -> int:
         return max(128, -(-self.chunk // 128) * 128)
@@ -80,10 +94,13 @@ class RasterInputs(NamedTuple):
 
     screen: ScreenGaussians
     binning: Union[TileBinning, RaggedBinning]
-    rows: torch.Tensor  # dense: (T, 12, K) windows; pair-major: (12, Pa)
+    # dense: (T, 12, K) windows; pair-major: (12, Pa); kernel_v=2: (T, K, 8)
+    # packed coefficients
+    rows: torch.Tensor
     origins: Optional[torch.Tensor]  # dense: (T, 2) tile origins
     tile_shape: Tuple[int, int]
     chunk: int  # pair-major slot width
+    color: Optional[torch.Tensor] = None  # kernel_v=2: (T, K, 4) colors
 
 
 def _take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -144,6 +161,38 @@ class _CompositeRagged(torch.autograd.Function):
         return drows, None, None, _bg_grad(full, g_full), None, None, None, None
 
 
+class _CompositeRowMajor(torch.autograd.Function):
+    """The row-major kernels behind one boundary (counterpart of the JAX
+    package's ``_composite``): ``composite_tiles_fwd_v2`` / ``_bwd_v2`` with
+    ``kernel_v == 2``, else ``composite_tiles_fwd`` / ``_bwd``, whose rows
+    are global conic rows when ``tile_origins`` is given. Differentiable in
+    ``tile_quad`` and ``tile_color``; the backward takes both cotangents."""
+
+    @staticmethod
+    def forward(ctx, tile_quad, tile_color, tile_counts, tile_origins, tile_shape, kernel_v):
+        if kernel_v == 2:
+            accum, tfinal = kernels.composite_tiles_fwd_v2(tile_quad, tile_color, tile_counts,
+                                                           tile_shape)
+        else:
+            accum, tfinal = kernels.composite_tiles_fwd(tile_quad, tile_color, tile_counts,
+                                                        tile_shape, tile_origins)
+        ctx.save_for_backward(tile_quad, tile_color, tile_counts, tile_origins, accum, tfinal)
+        ctx.static = (tile_shape, kernel_v)
+        return accum, tfinal
+
+    @staticmethod
+    def backward(ctx, g_accum, g_tfinal):
+        tile_quad, tile_color, tile_counts, tile_origins, accum, tfinal = ctx.saved_tensors
+        tile_shape, kernel_v = ctx.static
+        args = (tile_quad, tile_color, tile_counts, g_accum.contiguous(), g_tfinal.contiguous(),
+                accum, tfinal, tile_shape)
+        if kernel_v == 2:
+            dquad, dcolor = kernels.composite_tiles_bwd_v2(*args)
+        else:
+            dquad, dcolor = kernels.composite_tiles_bwd(*args, tile_origins)
+        return dquad, dcolor, None, None, None, None
+
+
 def _bg_grad(full: torch.Tensor, g_full: torch.Tensor) -> torch.Tensor:
     """d img_c / d bg_c = 1 - mask, per pixel."""
     return torch.sum(g_full[:, 0:3] * (1.0 - full[:, 4:5]), dim=(0, 2))
@@ -185,9 +234,14 @@ def prepare(means3d, scales, quats, opacities, rgbs, live, cam: Camera,
     # reordering the rows
     order_pad = torch.cat([binning.order.long(), binning.order.new_full((1,), n).long()])
     gidx = order_pad[binning.tile_indices.long()]  # (T, K) original row ids
-    win = _take_rows(rows_pad, gidx).transpose(1, 2).contiguous()  # (T, 12, K)
+    tile_rows = _take_rows(rows_pad, gidx)  # (T, K, 12)
     t_ids = torch.arange(ny * nx, device=means3d.device)
     origins = torch.stack([(t_ids % nx) * tw, (t_ids // nx) * th], dim=1).float()
+    if settings.kernel_v == 2 and settings.backend != "ref":
+        tile_quad = pack_tile_quads(tile_rows[..., :8], origins[:, None, :])
+        return RasterInputs(screen, binning, tile_quad, origins, (th, tw), 0,
+                            tile_rows[..., 8:].contiguous())
+    win = tile_rows.transpose(1, 2).contiguous()  # (T, 12, K)
     return RasterInputs(screen, binning, win, origins, (th, tw), 0)
 
 
@@ -196,6 +250,13 @@ def composite(inputs: RasterInputs, bg: torch.Tensor,
     """The compositing kernel on ``prepare``'s output -> (T, 5, P)."""
     bg = bg.float().contiguous()
     b = inputs.binning
+    if inputs.color is not None:
+        accum, tfinal = _CompositeRowMajor.apply(inputs.rows, inputs.color, b.tile_counts, None,
+                                                 inputs.tile_shape, 2)
+        # the row-major kernels leave the background to plain PyTorch
+        full = torch.cat([accum[..., 0:3] + tfinal * bg[None, None, :], accum[..., 3:4],
+                          1.0 - tfinal], dim=-1)
+        return full.permute(0, 2, 1)
     if isinstance(b, RaggedBinning):
         ny, nx = b.num_tiles
         return _CompositeRagged.apply(inputs.rows, b.tid, b.flags, bg, inputs.tile_shape,

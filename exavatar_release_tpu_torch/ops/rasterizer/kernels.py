@@ -1,11 +1,13 @@
 """Tile compositing: the CUDA kernels' wrappers and their plain PyTorch
 versions (counterpart of exavatar_release_tpu/ops/rasterizer/pallas_kernels.py
-for ``composite_tiles_fwd_cm`` / ``composite_tiles_bwd_cm`` and
-``composite_pairs_fwd_rg`` / ``composite_pairs_bwd_rg``, and of jax_ref.py).
+for ``composite_tiles_fwd_cm`` / ``composite_tiles_bwd_cm``,
+``composite_pairs_fwd_rg`` / ``composite_pairs_bwd_rg`` and the row-major
+``composite_tiles_fwd_v2`` / ``composite_tiles_bwd_v2`` /
+``composite_tiles_fwd`` / ``composite_tiles_bwd``, and of jax_ref.py).
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor goes
-to the kernel (``csrc/composite.cu``, ``csrc/composite_bwd.cu``), or the
-wrapper raises. There is no fallback. Each wrapper counts its launches in
+to the kernel (``csrc/composite.cu``, ``csrc/composite_bwd.cu``,
+``csrc/composite_rm.cu``), or the wrapper raises. There is no fallback. Each wrapper counts its launches in
 ``<wrapper>.launches``.
 
 The backward functions return the cotangent of the rows from the saved
@@ -22,11 +24,22 @@ Layouts are the JAX package's:
                    bit0 first slot of its tile, bit1 last, bit2 valid
   out  (T, 5, P)   [rgb over bg, depth, mask = 1 - T_final], P = th*tw,
                    pixel i of a tile at (i % tw + ox, i // tw + oy)
+and for the row-major kernels:
+  tile_quad  (T, K, 8)  packed rows [c0..c5, log_op, 0] with q = c0 + c1 lx +
+                        c2 ly + c3 lx^2 + c4 lx ly + c5 ly^2 at the tile-local
+                        pixel (lx, ly); or, with ``tile_origins`` (T, 2), the
+                        global conic rows [A,B,C,gx,gy,log_op,_,_]
+  tile_color (T, K, 4)  [r, g, b, depth]
+  accum (T, P, 4), tfinal (T, P, 1)  the blend NOT over a background, and
+                        the transmittance where each pixel ended
+  dquad (T, K, 8), dcolor (T, K, 4)  lanes 6-7 and slots at or past
+                        min(count, K) zero; with origins dquad is
+                        [dA,dB,dC,dgx,dgy,dlog_op,0,0]
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,35 +56,21 @@ TERM_EPS = 1e-4
 # --------------------------------------------------------------------------
 
 
-def composite_plain_with_visits(
-    win: torch.Tensor, counts: torch.Tensor, origins: torch.Tensor,
-    bg: torch.Tensor, tile_shape: Tuple[int, int],
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense composite as a sequential scan over each tile's rows
-    [0, min(count, K)), all tiles and pixels at once. Returns (out (T,5,P),
-    visits (T,P)): visits counts the rows each pixel evaluates before it
-    terminates, the trigger included — the work the kernel must do."""
-    T, _, K = win.shape
-    th, tw = tile_shape
-    P = th * tw
-    dev = win.device
-    i = torch.arange(P, device=dev)
-    px = (i % tw).float()[None, :] + origins[:, 0:1].float()  # (T, P)
-    py = (i // tw).float()[None, :] + origins[:, 1:2].float()
-    n = torch.clamp(counts.long(), max=K)
+def _scan_forward(q_of, color_of, n: torch.Tensor, T: int, P: int, dev):
+    """The blend rules, once for every plain version: a sequential scan over
+    each tile's rows [0, n), all tiles and pixels at once. ``q_of(k)`` gives
+    (q (T, P), log_op (T, 1), whatever the caller's gradient needs) of row k,
+    ``color_of(k)`` its (T, 4) colors. Returns (acc (4, T, P), Tr (T, P),
+    visits (T, P)): visits counts the rows each pixel evaluates before it
+    terminates, the trigger included."""
     acc = torch.zeros(4, T, P, device=dev)
     Tr = torch.ones(T, P, device=dev)
     done = torch.zeros(T, P, dtype=torch.bool, device=dev)
     visits = torch.zeros(T, P, dtype=torch.int64, device=dev)
     for k in range(int(n.max()) if T else 0):
-        row = win[:, :, k]  # (T, 12)
         live = (k < n)[:, None]
         visits += live & ~done
-        A, B, C = row[:, 0:1], row[:, 1:2], row[:, 2:3]
-        dx = px - row[:, 3:4]
-        dy = py - row[:, 4:5]
-        log_op = row[:, 5:6]
-        q = log_op - 0.5 * (A * (dx * dx) + C * (dy * dy)) - B * (dx * dy)
+        q, log_op, _ = q_of(k)
         alpha_un = torch.exp(q)
         valid = (q <= log_op) & (alpha_un >= ALPHA_MIN) & live
         alpha = torch.where(valid, torch.clamp(alpha_un, max=ALPHA_MAX), 0.0)
@@ -79,13 +78,88 @@ def composite_plain_with_visits(
         done = done | (Tr * (1.0 - alpha) < TERM_EPS)
         alpha = torch.where(done, 0.0, alpha)
         w = alpha * Tr
-        acc = acc + w[None] * row[:, 8:12].T[:, :, None]
+        acc = acc + w[None] * color_of(k).T[:, :, None]
         Tr = Tr * (1.0 - alpha)
+    return acc, Tr, visits
+
+
+def _tile_pixels(T: int, tile_shape, dev, origins=None):
+    """Pixel coordinates (T, P) of every tile: tile-local, or global with
+    ``origins`` (T, 2)."""
+    th, tw = tile_shape
+    i = torch.arange(th * tw, device=dev)
+    px = (i % tw).float()[None, :].expand(T, -1)
+    py = (i // tw).float()[None, :].expand(T, -1)
+    if origins is not None:
+        px = px + origins[:, 0:1].float()
+        py = py + origins[:, 1:2].float()
+    return px, py
+
+
+def _conic_q(row, px, py):
+    """q of global conic rows (T, >=6) at pixels (px, py), in the direct
+    form: (q, log_op, (A, B, C, dx, dy))."""
+    A, B, C = row[:, 0:1], row[:, 1:2], row[:, 2:3]
+    dx = px - row[:, 3:4]
+    dy = py - row[:, 4:5]
+    log_op = row[:, 5:6]
+    q = log_op - 0.5 * (A * (dx * dx) + C * (dy * dy)) - B * (dx * dy)
+    return q, log_op, (A, B, C, dx, dy)
+
+
+def _packed_q(row, lx, ly):
+    """q of packed rows [c0..c5, log_op, 0] at tile-local pixels, summed left
+    to right: the order the kernel follows term by term."""
+    q = (row[:, 0:1] + row[:, 1:2] * lx + row[:, 2:3] * ly + row[:, 3:4] * (lx * lx)
+         + row[:, 4:5] * (lx * ly) + row[:, 5:6] * (ly * ly))
+    return q, row[:, 6:7], None
+
+
+def composite_plain_with_visits(
+    win: torch.Tensor, counts: torch.Tensor, origins: torch.Tensor,
+    bg: torch.Tensor, tile_shape: Tuple[int, int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense composite of channel-major windows. Returns (out (T,5,P),
+    visits (T,P)): the work the kernel must do."""
+    T, _, K = win.shape
+    px, py = _tile_pixels(T, tile_shape, win.device, origins)
+    n = torch.clamp(counts.long(), max=K)
+    acc, Tr, visits = _scan_forward(lambda k: _conic_q(win[:, :, k], px, py),
+                                    lambda k: win[:, 8:12, k], n, T, px.shape[1], win.device)
     out = torch.stack(
         [acc[0] + Tr * bg[0], acc[1] + Tr * bg[1], acc[2] + Tr * bg[2], acc[3], 1.0 - Tr],
         dim=1,
     )
     return out, visits
+
+
+def composite_rm_plain_with_visits(
+    tile_quad: torch.Tensor, tile_color: torch.Tensor, tile_counts: torch.Tensor,
+    tile_shape: Tuple[int, int], tile_origins: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense composite of row-major rows: (accum (T,P,4), tfinal (T,P,1),
+    visits (T,P))."""
+    T, K, _ = tile_quad.shape
+    px, py = _tile_pixels(T, tile_shape, tile_quad.device, tile_origins)
+    n = torch.clamp(tile_counts.long(), max=K)
+    q_of = _conic_q if tile_origins is not None else _packed_q
+    acc, Tr, visits = _scan_forward(lambda k: q_of(tile_quad[:, k], px, py),
+                                    lambda k: tile_color[:, k], n, T, px.shape[1],
+                                    tile_quad.device)
+    return acc.permute(1, 2, 0).contiguous(), Tr[:, :, None], visits
+
+
+def composite_tiles_fwd_plain(tile_quad, tile_color, tile_counts, tile_shape,
+                              tile_origins=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``composite_tiles_fwd``."""
+    return composite_rm_plain_with_visits(tile_quad, tile_color, tile_counts, tile_shape,
+                                          tile_origins)[:2]
+
+
+def composite_tiles_fwd_v2_plain(tile_quad, tile_color, tile_counts,
+                                 tile_shape) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``composite_tiles_fwd_v2``."""
+    return composite_tiles_fwd_plain(tile_quad, tile_color, tile_counts, tile_shape)
 
 
 def composite_tiles_fwd_cm_plain(win, counts, origins, bg, tile_shape) -> torch.Tensor:
@@ -140,46 +214,28 @@ class BackwardStats(NamedTuple):
     hits: int  # (pixel, row) pairs that contribute a gradient
 
 
-def composite_bwd_plain_with_stats(
-    win: torch.Tensor, counts: torch.Tensor, origins: torch.Tensor, bg: torch.Tensor,
-    full: torch.Tensor, g_full: torch.Tensor, tile_shape: Tuple[int, int],
-) -> Tuple[torch.Tensor, BackwardStats]:
-    """Dense backward as an explicit replay of the forward scan, all tiles
-    and pixels at once. Per pixel, with g_acc = g_full[0:4], tfinal =
-    1 - full[4], g_tf = bg . g_full[0:3] - g_full[4] and A_p = g_acc . accum +
-    g_tf tfinal: every live row i with weight w_i = alpha_i T_i gets
+def _replay_backward(q_of, color_of, n: torch.Tensor, g_acc, A_p: torch.Tensor,
+                     emit) -> BackwardStats:
+    """The backward's replay of ``_scan_forward``, once for every plain
+    version. Per pixel, with g_acc the four (T, P) cotangents of accum and
+    A_p = g_acc . accum + g_tf tfinal: every live row i with weight w_i =
+    alpha_i T_i gets
       cg_i = g_acc . color_i,  P_i = sum_{j<=i} w_j cg_j,
-      dalpha_i = T_i cg_i - (A_p - P_i) / (1 - alpha_i),  dq_i = dalpha_i exp(q_i),
-    and the row's gradient is the sum over the tile's pixels of dq_i times
-    dq/d(row) and of w_i g_acc for the colors. Returns (dwin, stats)."""
-    T, _, K = win.shape
-    th, tw = tile_shape
-    P = th * tw
-    dev = win.device
-    i = torch.arange(P, device=dev)
-    px = (i % tw).float()[None, :] + origins[:, 0:1].float()  # (T, P)
-    py = (i // tw).float()[None, :] + origins[:, 1:2].float()
-    n = torch.clamp(counts.long(), max=K)
-    tfinal = 1.0 - full[:, 4]
-    g_acc = [g_full[:, c] for c in range(4)]
-    g_tf = bg[0] * g_full[:, 0] + bg[1] * g_full[:, 1] + bg[2] * g_full[:, 2] - g_full[:, 4]
-    A_p = (g_acc[0] * (full[:, 0] - bg[0] * tfinal) + g_acc[1] * (full[:, 1] - bg[1] * tfinal)
-           + g_acc[2] * (full[:, 2] - bg[2] * tfinal) + g_acc[3] * full[:, 3] + g_tf * tfinal)
+      dalpha_i = T_i cg_i - (A_p - P_i) / (1 - alpha_i),  dq_i = dalpha_i exp(q_i)
+    (the unclamped d alpha / d q), and ``emit(k, dq, w, extra)`` writes row
+    k's gradient from dq (zero where the pixel does not contribute), w and
+    what ``q_of`` returned third."""
+    T, P = A_p.shape
+    dev = A_p.device
     Tr = torch.ones(T, P, device=dev)
     Pr = torch.zeros(T, P, device=dev)
     done = torch.zeros(T, P, dtype=torch.bool, device=dev)
     visits = torch.zeros((), dtype=torch.int64, device=dev)
     hits = torch.zeros((), dtype=torch.int64, device=dev)
-    dwin = torch.zeros(T, 12, K, device=dev)
     for k in range(int(n.max()) if T else 0):
-        row = win[:, :, k]  # (T, 12)
         live = (k < n)[:, None]
         visits += (live & ~done).sum()
-        A, B, C = row[:, 0:1], row[:, 1:2], row[:, 2:3]
-        dx = px - row[:, 3:4]
-        dy = py - row[:, 4:5]
-        log_op = row[:, 5:6]
-        q = log_op - 0.5 * (A * (dx * dx) + C * (dy * dy)) - B * (dx * dy)
+        q, log_op, extra = q_of(k)
         alpha_un = torch.exp(q)
         valid = (q <= log_op) & (alpha_un >= ALPHA_MIN) & live
         alpha = torch.where(valid, torch.clamp(alpha_un, max=ALPHA_MAX), 0.0)
@@ -188,21 +244,108 @@ def composite_bwd_plain_with_stats(
         hits += hit.sum()
         alpha = torch.where(done, 0.0, alpha)
         w = alpha * Tr
-        cg = (g_acc[0] * row[:, 8:9] + g_acc[1] * row[:, 9:10] + g_acc[2] * row[:, 10:11]
-              + g_acc[3] * row[:, 11:12])
+        col = color_of(k)
+        cg = (g_acc[0] * col[:, 0:1] + g_acc[1] * col[:, 1:2] + g_acc[2] * col[:, 2:3]
+              + g_acc[3] * col[:, 3:4])
         Pr = Pr + w * cg
         dalpha = Tr * cg - (A_p - Pr) / (1.0 - alpha)
         dq = torch.where(hit, dalpha * alpha_un, 0.0)  # unclamped d alpha / d q
-        dwin[:, 0, k] = (-0.5 * (dx * dx) * dq).sum(1)
-        dwin[:, 1, k] = (-(dx * dy) * dq).sum(1)
-        dwin[:, 2, k] = (-0.5 * (dy * dy) * dq).sum(1)
-        dwin[:, 3, k] = ((A * dx + B * dy) * dq).sum(1)
-        dwin[:, 4, k] = ((B * dx + C * dy) * dq).sum(1)
-        dwin[:, 5, k] = dq.sum(1)
+        emit(k, dq, w, extra)
+        Tr = Tr * (1.0 - alpha)
+    return BackwardStats(int(visits), int(hits))
+
+
+def _conic_row_grad(dq: torch.Tensor, extra) -> torch.Tensor:
+    """(T, 6) gradient [dA, dB, dC, dgx, dgy, dlog_op] of a global conic row
+    from its pixels' dq (T, P) and what ``_conic_q`` returned third."""
+    A, B, C, dx, dy = extra
+    return torch.stack([
+        (-0.5 * (dx * dx) * dq).sum(1), (-(dx * dy) * dq).sum(1), (-0.5 * (dy * dy) * dq).sum(1),
+        ((A * dx + B * dy) * dq).sum(1), ((B * dx + C * dy) * dq).sum(1), dq.sum(1)], dim=1)
+
+
+def composite_bwd_plain_with_stats(
+    win: torch.Tensor, counts: torch.Tensor, origins: torch.Tensor, bg: torch.Tensor,
+    full: torch.Tensor, g_full: torch.Tensor, tile_shape: Tuple[int, int],
+) -> Tuple[torch.Tensor, BackwardStats]:
+    """Dense backward of channel-major windows as an explicit replay of the
+    forward scan. Per pixel g_acc = g_full[0:4], tfinal = 1 - full[4], g_tf =
+    bg . g_full[0:3] - g_full[4]; a row's gradient is the sum over the tile's
+    pixels of dq times dq/d(row), and of w g_acc for the colors. Returns
+    (dwin, stats)."""
+    T, _, K = win.shape
+    px, py = _tile_pixels(T, tile_shape, win.device, origins)
+    n = torch.clamp(counts.long(), max=K)
+    tfinal = 1.0 - full[:, 4]
+    g_acc = [g_full[:, c] for c in range(4)]
+    g_tf = bg[0] * g_full[:, 0] + bg[1] * g_full[:, 1] + bg[2] * g_full[:, 2] - g_full[:, 4]
+    A_p = (g_acc[0] * (full[:, 0] - bg[0] * tfinal) + g_acc[1] * (full[:, 1] - bg[1] * tfinal)
+           + g_acc[2] * (full[:, 2] - bg[2] * tfinal) + g_acc[3] * full[:, 3] + g_tf * tfinal)
+    dwin = torch.zeros(T, 12, K, device=win.device)
+
+    def emit(k, dq, w, extra):
+        dwin[:, 0:6, k] = _conic_row_grad(dq, extra)
         for c in range(4):
             dwin[:, 8 + c, k] = (w * g_acc[c]).sum(1)
-        Tr = Tr * (1.0 - alpha)
-    return dwin, BackwardStats(int(visits), int(hits))
+
+    stats = _replay_backward(lambda k: _conic_q(win[:, :, k], px, py),
+                             lambda k: win[:, 8:12, k], n, g_acc, A_p, emit)
+    return dwin, stats
+
+
+def composite_rm_bwd_plain_with_stats(
+    tile_quad: torch.Tensor, tile_color: torch.Tensor, tile_counts: torch.Tensor,
+    g_accum: torch.Tensor, g_tfinal: torch.Tensor, accum: torch.Tensor, tfinal: torch.Tensor,
+    tile_shape: Tuple[int, int], tile_origins: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, BackwardStats]:
+    """Dense backward of row-major rows: (dquad (T,K,8), dcolor (T,K,4),
+    stats). A_p is formed from both cotangents. For packed rows the
+    coefficient gradient is the sum over pixels of dq times the tile-local
+    basis [1, lx, ly, lx^2, lx ly, ly^2]; with origins it is the gradient of
+    the global conic row, each pixel's term taken directly from its offset to
+    the center (the packing's transpose applied to the summed basis form is
+    the same in exact arithmetic, but cancels large terms in float32)."""
+    T, K, _ = tile_quad.shape
+    dev = tile_quad.device
+    px, py = _tile_pixels(T, tile_shape, dev, tile_origins)
+    n = torch.clamp(tile_counts.long(), max=K)
+    g_acc = [g_accum[:, :, c] for c in range(4)]
+    A_p = (g_acc[0] * accum[:, :, 0] + g_acc[1] * accum[:, :, 1] + g_acc[2] * accum[:, :, 2]
+           + g_acc[3] * accum[:, :, 3] + g_tfinal[:, :, 0] * tfinal[:, :, 0])
+    dquad = torch.zeros(T, K, 8, device=dev)
+    dcolor = torch.zeros(T, K, 4, device=dev)
+    basis = (None, px, py, px * px, px * py, py * py)
+
+    def emit(k, dq, w, extra):
+        if extra is not None:
+            dquad[:, k, 0:6] = _conic_row_grad(dq, extra)
+        else:
+            dquad[:, k, 0] = dq.sum(1)
+            for c in range(1, 6):
+                dquad[:, k, c] = (dq * basis[c]).sum(1)
+        for c in range(4):
+            dcolor[:, k, c] = (w * g_acc[c]).sum(1)
+
+    q_of = _conic_q if tile_origins is not None else _packed_q
+    stats = _replay_backward(lambda k: q_of(tile_quad[:, k], px, py),
+                             lambda k: tile_color[:, k], n, g_acc, A_p, emit)
+    return dquad, dcolor, stats
+
+
+def composite_tiles_bwd_plain(tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accum,
+                              tfinal, tile_shape,
+                              tile_origins=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``composite_tiles_bwd``."""
+    return composite_rm_bwd_plain_with_stats(tile_quad, tile_color, tile_counts, g_accum,
+                                             g_tfinal, accum, tfinal, tile_shape,
+                                             tile_origins)[:2]
+
+
+def composite_tiles_bwd_v2_plain(tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accum,
+                                 tfinal, tile_shape) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``composite_tiles_bwd_v2``."""
+    return composite_tiles_bwd_plain(tile_quad, tile_color, tile_counts, g_accum, g_tfinal,
+                                     accum, tfinal, tile_shape)
 
 
 def composite_tiles_bwd_cm_plain(win, counts, origins, bg, full, g_full,
@@ -227,7 +370,7 @@ def composite_pairs_bwd_rg_plain(rows, tid, flags, bg, oy_off: float, full, g_fu
 def bwd_row_errors(got: torch.Tensor, want: torch.Tensor,
                    row_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """A backward output against a reference, row by row: (max |got - want|,
-    max |want|), each (12,). The rows carry different units (dA, dB and dC
+    max |want|), one value per index of ``row_dim``. The rows carry different units (dA, dB and dC
     scale with squared pixel distances, dlog_op and the colors with none), so
     a difference is judged against its own row's largest value, never
     against the whole tensor's: that would hide a wrong color row behind the
@@ -422,3 +565,158 @@ def composite_pairs_bwd_rg(rows, tid, flags, bg, oy_off: float, full, g_full, ti
 
 
 composite_pairs_bwd_rg.launches = 0
+
+
+# --------------------------------------------------------------------------
+# row-major kernels (csrc/composite_rm.cu)
+# --------------------------------------------------------------------------
+
+
+def _lib_rm() -> ctypes.CDLL:
+    lib = cuda_build.load("composite_rm")
+    lib.composite_tiles_fwd_v2.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    lib.composite_tiles_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    lib.composite_tiles_bwd_v2.argtypes = [_P] * 9 + [_I, _I, _I, _I, _P]
+    lib.composite_tiles_bwd.argtypes = [_P] * 10 + [_I, _I, _I, _I, _P]
+    for fn in (lib.composite_tiles_fwd_v2, lib.composite_tiles_fwd, lib.composite_tiles_bwd_v2,
+               lib.composite_tiles_bwd):
+        fn.restype = _I
+    return lib
+
+
+def _check_rm(name: str, x: torch.Tensor, shape: tuple, device) -> None:
+    """A float32 operand of the row-major kernels, which load and store
+    16 bytes at a time."""
+    _check(name, x, torch.float32, shape, device)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _fwd_rm(wrapper, tile_quad, tile_color, tile_counts, tile_shape, tile_origins):
+    """Checks, allocation and launch shared by the two forward wrappers;
+    ``wrapper`` is the one whose kernel and launch count are used."""
+    T, K, _ = tile_quad.shape
+    th, tw = tile_shape
+    dev = tile_quad.device
+    _check_rm("tile_quad", tile_quad, (T, K, 8), dev)
+    _check_rm("tile_color", tile_color, (T, K, 4), dev)
+    _check("tile_counts", tile_counts, torch.int32, (T,), dev)
+    if tile_origins is not None:
+        _check("tile_origins", tile_origins, torch.float32, (T, 2), dev)
+    accum = torch.empty(T, th * tw, 4, device=dev)
+    tfinal = torch.empty(T, th * tw, 1, device=dev)
+    if T == 0:
+        return accum, tfinal
+    head = (tile_quad.data_ptr(), tile_color.data_ptr(), tile_counts.data_ptr())
+    tail = (accum.data_ptr(), tfinal.data_ptr(), T, K, th, tw,
+            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        if wrapper is composite_tiles_fwd_v2:
+            rc = _lib_rm().composite_tiles_fwd_v2(*head, *tail)
+        else:
+            origins = None if tile_origins is None else tile_origins.data_ptr()
+            rc = _lib_rm().composite_tiles_fwd(*head, origins, *tail)
+    _raise_on(rc, wrapper.__name__)
+    wrapper.launches += 1
+    return accum, tfinal
+
+
+def _bwd_rm(wrapper, tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accum, tfinal,
+            tile_shape, tile_origins):
+    """Checks, allocation and launch shared by the two backward wrappers."""
+    T, K, _ = tile_quad.shape
+    th, tw = tile_shape
+    P = th * tw
+    dev = tile_quad.device
+    _check_rm("tile_quad", tile_quad, (T, K, 8), dev)
+    _check_rm("tile_color", tile_color, (T, K, 4), dev)
+    _check("tile_counts", tile_counts, torch.int32, (T,), dev)
+    if tile_origins is not None:
+        _check("tile_origins", tile_origins, torch.float32, (T, 2), dev)
+    _check_rm("g_accum", g_accum, (T, P, 4), dev)
+    _check_rm("g_tfinal", g_tfinal, (T, P, 1), dev)
+    _check_rm("accum", accum, (T, P, 4), dev)
+    _check_rm("tfinal", tfinal, (T, P, 1), dev)
+    # the kernel adds its blocks' partial sums to live rows with atomics; the
+    # TPU v2 kernel left dead regions unwritten, here they are zero
+    dquad = torch.zeros(T, K, 8, device=dev)
+    dcolor = torch.zeros(T, K, 4, device=dev)
+    if T == 0 or K == 0:
+        return dquad, dcolor
+    head = (tile_quad.data_ptr(), tile_color.data_ptr(), tile_counts.data_ptr())
+    tail = (g_accum.data_ptr(), g_tfinal.data_ptr(), accum.data_ptr(), tfinal.data_ptr(),
+            dquad.data_ptr(), dcolor.data_ptr(), T, K, th, tw,
+            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        if wrapper is composite_tiles_bwd_v2:
+            rc = _lib_rm().composite_tiles_bwd_v2(*head, *tail)
+        else:
+            origins = None if tile_origins is None else tile_origins.data_ptr()
+            rc = _lib_rm().composite_tiles_bwd(*head, origins, *tail)
+    _raise_on(rc, wrapper.__name__)
+    wrapper.launches += 1
+    return dquad, dcolor
+
+
+def composite_tiles_fwd_v2(tile_quad, tile_color, tile_counts,
+                           tile_shape) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense row-major composite of packed rows. tile_quad (T, K, 8),
+    tile_color (T, K, 4) f32, tile_counts (T,) i32 -> accum (T, th*tw, 4),
+    tfinal (T, th*tw, 1). Replaces pallas_kernels.composite_tiles_fwd_v2 (its
+    ``chunk`` and ``prefix_bf16`` were TPU tiling and matrix-unit knobs)."""
+    if _on_cpu(tile_quad):
+        return composite_tiles_fwd_v2_plain(tile_quad, tile_color, tile_counts, tile_shape)
+    return _fwd_rm(composite_tiles_fwd_v2, tile_quad, tile_color, tile_counts, tile_shape, None)
+
+
+composite_tiles_fwd_v2.launches = 0
+
+
+def composite_tiles_fwd(tile_quad, tile_color, tile_counts, tile_shape,
+                        tile_origins=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same function; with ``tile_origins`` (T, 2) f32 the rows of
+    tile_quad are global conic rows and q is the direct form of the
+    channel-major kernels. Replaces pallas_kernels.composite_tiles_fwd."""
+    if _on_cpu(tile_quad):
+        return composite_tiles_fwd_plain(tile_quad, tile_color, tile_counts, tile_shape,
+                                         tile_origins)
+    return _fwd_rm(composite_tiles_fwd, tile_quad, tile_color, tile_counts, tile_shape,
+                   tile_origins)
+
+
+composite_tiles_fwd.launches = 0
+
+
+def composite_tiles_bwd_v2(tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accum, tfinal,
+                           tile_shape) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of ``composite_tiles_fwd_v2`` from both cotangents and the
+    forward's own outputs -> dquad (T, K, 8), dcolor (T, K, 4). Replaces
+    pallas_kernels.composite_tiles_bwd_v2."""
+    if _on_cpu(tile_quad):
+        return composite_tiles_bwd_v2_plain(tile_quad, tile_color, tile_counts, g_accum,
+                                            g_tfinal, accum, tfinal, tile_shape)
+    return _bwd_rm(composite_tiles_bwd_v2, tile_quad, tile_color, tile_counts, g_accum, g_tfinal,
+                   accum, tfinal, tile_shape, None)
+
+
+composite_tiles_bwd_v2.launches = 0
+
+
+def composite_tiles_bwd(tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accum, tfinal,
+                        tile_shape, tile_origins=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backward of ``composite_tiles_fwd``; with ``tile_origins`` dquad comes
+    in the global row layout. Replaces pallas_kernels.composite_tiles_bwd."""
+    if _on_cpu(tile_quad):
+        return composite_tiles_bwd_plain(tile_quad, tile_color, tile_counts, g_accum, g_tfinal,
+                                         accum, tfinal, tile_shape, tile_origins)
+    return _bwd_rm(composite_tiles_bwd, tile_quad, tile_color, tile_counts, g_accum, g_tfinal,
+                   accum, tfinal, tile_shape, tile_origins)
+
+
+composite_tiles_bwd.launches = 0
+
+# every kernel wrapper of this module, for callers that reset or read the
+# launch counts
+KERNELS = (composite_tiles_fwd_cm, composite_tiles_bwd_cm, composite_tiles_fwd_v2,
+           composite_tiles_bwd_v2, composite_tiles_fwd, composite_tiles_bwd,
+           composite_pairs_fwd_rg, composite_pairs_bwd_rg)

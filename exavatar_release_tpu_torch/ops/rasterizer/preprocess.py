@@ -1,5 +1,7 @@
 """3DGS screen-space preprocessing: EWA projection to conics (counterpart of
-exavatar_release_tpu/ops/rasterizer/preprocess.py:project_gaussians).
+exavatar_release_tpu/ops/rasterizer/preprocess.py:project_gaussians), and
+the packing of gathered conic rows into tile-local quadratic coefficients
+(``pack_tile_quads``).
 
 Conventions of the CUDA rasterizer the reference uses:
 * view-space cull at z <= 0.2;
@@ -30,6 +32,30 @@ class ScreenGaussians(NamedTuple):
     # (N, 2) per-axis half-extent of the alpha >= 1/255 ellipse (tight AABB,
     # <= radius): binning on it drops only pairs the compositor zeroes anyway
     extent: torch.Tensor
+
+
+def pack_tile_quads(params: torch.Tensor, origins: torch.Tensor) -> torch.Tensor:
+    """Per-tile-local quadratic coefficients from gathered conic rows, plain
+    PyTorch under autograd.
+
+    params: (..., 8) rows [A, B, C, gx, gy, log_op, _, _], already gathered
+    per tile; origins: broadcastable (..., 2) pixel origin of each tile.
+    Returns (..., 8) rows [c0, c1, c2, c3, c4, c5, log_op, 0] such that
+    q(lx, ly) = c0 + c1 lx + c2 ly + c3 lx^2 + c4 lx ly + c5 ly^2 equals
+    log_op - 0.5 mahalanobis^2 at the tile-LOCAL pixel (lx, ly). The
+    compositing kernels read lane 6 only for the test q <= log_op and send no
+    gradient there: the gradient of log_op reaches the rows through c0."""
+    A, B, C = params[..., 0], params[..., 1], params[..., 2]
+    gx = params[..., 3] - origins[..., 0]
+    gy = params[..., 4] - origins[..., 1]
+    log_op = params[..., 5]
+    c3 = -0.5 * A
+    c4 = -B
+    c5 = -0.5 * C
+    c1 = A * gx + B * gy
+    c2 = B * gx + C * gy
+    c0 = -0.5 * (A * gx * gx + 2.0 * B * gx * gy + C * gy * gy) + log_op
+    return torch.stack([c0, c1, c2, c3, c4, c5, log_op, torch.zeros_like(c0)], dim=-1)
 
 
 def project_gaussians(

@@ -1,3 +1,3 @@
-"""Training (counterpart of exavatar_release_tpu/train): the loss and its
-gradients of one frame; the optimizer update, densification and checkpoints
-wait for the next slice."""
+"""Training (counterpart of exavatar_release_tpu/train): the train step, the
+optimizer with named groups, densification cadence, the capacity governor
+and checkpoints."""

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the four compositing kernels of a checkout on one NVIDIA GPU.
+"""Time the eight compositing kernels of a checkout on one NVIDIA GPU.
 
     python3 kernel_ab.py [ROOT]
 
@@ -10,7 +10,11 @@ it once per checkout inside one call on one card, in the order parent,
 change, change, parent, to compare two versions of ``csrc/``. Prints the
 card's name and power limit and one JSON line: for each kernel three
 CUDA-event means of 30 launches (ms) after 5 warm-up launches, at the 1080p
-tiling (510 tiles of 32x128, K = 4096, chunk 256, a random cotangent).
+tiling (510 tiles of 32x128, K = 4096, chunk 256, a random cotangent). The
+row-major kernels get the same windows repacked (``composite_tiles_fwd_v2`` /
+``_bwd_v2`` the packed tile-local coefficients, ``composite_tiles_fwd`` /
+``_bwd`` the global rows with origins) and random cotangents of ``accum`` and
+``tfinal``. A checkout from before the row-major kernels times the four it has.
 """
 import json
 import os
@@ -43,6 +47,23 @@ def main() -> int:
         "composite_pairs_bwd_rg": lambda: kn.composite_pairs_bwd_rg(*rg, full, g_full, tile, T,
                                                                     chunk, nx),
     }
+    if hasattr(kn, "composite_tiles_fwd_v2"):
+        rows_g, packed, color = cs.rm_rows_from_windows(win, origins)
+        f3 = kn.composite_tiles_fwd_v2(packed, color, counts, tile)
+        f5 = kn.composite_tiles_fwd(rows_g, color, counts, tile, origins)
+        g = torch.Generator().manual_seed(3)
+        cot = (torch.randn(f3[0].shape, generator=g).cuda(),
+               torch.randn(f3[1].shape, generator=g).cuda())
+        fns.update({
+            "composite_tiles_fwd_v2": lambda: kn.composite_tiles_fwd_v2(packed, color, counts,
+                                                                        tile),
+            "composite_tiles_bwd_v2": lambda: kn.composite_tiles_bwd_v2(packed, color, counts,
+                                                                        *cot, *f3, tile),
+            "composite_tiles_fwd": lambda: kn.composite_tiles_fwd(rows_g, color, counts, tile,
+                                                                  origins),
+            "composite_tiles_bwd": lambda: kn.composite_tiles_bwd(rows_g, color, counts, *cot,
+                                                                  *f5, tile, origins),
+        })
     ms = {}
     for name, fn in fns.items():
         cs.cuda_ms(fn, 5)

@@ -1,5 +1,5 @@
-"""The port's CUDA compositing kernels on the card, forward and backward:
-each against its plain PyTorch version on the same CUDA tensors, the
+"""The port's CUDA compositing kernels on the card, forward and backward,
+channel-major, pair-major and row-major: each against its plain PyTorch version on the same CUDA tensors, the
 wrappers' input checks, their launch counters, a render's gradients against
 the same render on CPU tensors, and a failed build. Marked ``cuda``; skips
 where there is no GPU.
@@ -209,6 +209,152 @@ def test_rasterize_gradients_card_vs_cpu(dev, pair_major):
     assert (fwd.launches, bwd.launches) == (n_f + 1, n_b + 1)
     for g, w in zip(got, grads("cpu")):
         assert _scaled(g, w) <= 1e-4
+
+
+# --------------------------------------------------------------------------
+# the row-major kernels (csrc/composite_rm.cu)
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def rm_scene(scene):
+    """The same windows row-major: global conic rows, their packed tile-local
+    coefficients, colors, and both cotangents."""
+    from exavatar_release_tpu_torch.ops.rasterizer.preprocess import pack_tile_quads
+
+    s = scene
+    rows_g = s["win"][:, :8].transpose(1, 2).contiguous()
+    color = s["win"][:, 8:].transpose(1, 2).contiguous()
+    packed = pack_tile_quads(rows_g, s["origins"][:, None, :]).contiguous()
+    g = torch.Generator().manual_seed(4)
+    P = TILE[0] * TILE[1]
+    T = rows_g.shape[0]
+    return dict(rows_g=rows_g, packed=packed, color=color, counts=s["counts"],
+                origins=s["origins"],
+                g_accum=torch.randn(T, P, 4, generator=g).to(rows_g.device),
+                g_tfinal=torch.randn(T, P, 1, generator=g).to(rows_g.device))
+
+
+RM_CASES = {"v2": ("packed", False), "v1": ("packed", False), "v1_origins": ("rows_g", True)}
+
+
+def _rm_forward(r, case, plain=False):
+    quad, localize = RM_CASES[case]
+    args = (r[quad], r["color"], r["counts"], TILE)
+    if case == "v2":
+        return (kn.composite_tiles_fwd_v2_plain if plain else kn.composite_tiles_fwd_v2)(*args)
+    fn = kn.composite_tiles_fwd_plain if plain else kn.composite_tiles_fwd
+    return fn(*args, r["origins"] if localize else None)
+
+
+@pytest.mark.parametrize("case", list(RM_CASES))
+def test_row_major_fwd_kernel_equals_plain(rm_scene, case):
+    wrapper = kn.composite_tiles_fwd_v2 if case == "v2" else kn.composite_tiles_fwd
+    n = wrapper.launches
+    accum, tfinal = _rm_forward(rm_scene, case)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n + 1
+    w_accum, w_tfinal = _rm_forward(rm_scene, case, plain=True)
+    # the kernel rounds every operation as the plain version does (-fmad=false)
+    assert torch.equal(accum, w_accum) and torch.equal(tfinal, w_tfinal)
+    assert float(tfinal.min()) < 2e-4  # some pixels terminated
+
+
+def test_row_major_localized_is_the_channel_major_function(scene, rm_scene):
+    s = scene
+    accum, tfinal = _rm_forward(rm_scene, "v1_origins")
+    full = kn.composite_tiles_fwd_cm(s["win"], s["counts"], s["origins"], s["bg"], TILE)
+    mine = torch.cat([accum[..., :3] + tfinal * s["bg"], accum[..., 3:4], 1 - tfinal], dim=2)
+    assert float((full - mine.transpose(1, 2)).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("case", list(RM_CASES))
+def test_row_major_bwd_kernel_vs_plain(rm_scene, case):
+    r = rm_scene
+    quad, localize = RM_CASES[case]
+    accum, tfinal = _rm_forward(r, case)
+    args = (r[quad], r["color"], r["counts"], r["g_accum"], r["g_tfinal"], accum, tfinal, TILE)
+    if case == "v2":
+        wrapper = kn.composite_tiles_bwd_v2
+        n = wrapper.launches
+        got = wrapper(*args)
+        want = kn.composite_tiles_bwd_v2_plain(*args)
+    else:
+        wrapper = kn.composite_tiles_bwd
+        n = wrapper.launches
+        o = r["origins"] if localize else None
+        got = wrapper(*args, o)
+        want = kn.composite_tiles_bwd_plain(*args, o)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n + 1
+    # [dquad | dcolor] has the layout of the channel-major rows: lanes 6-7 zero
+    assert _worst_row(torch.cat(got, dim=2), torch.cat(want, dim=2), 2) <= 1e-4
+    past = torch.arange(got[0].shape[1], device=got[0].device)[None, :] >= r["counts"][:, None]
+    assert not got[0][past].any() and not got[1][past].any()
+
+
+@pytest.mark.parametrize("bad", ["dtype", "strided", "shape", "misaligned"])
+def test_row_major_wrapper_rejects(rm_scene, bad):
+    r = dict(rm_scene)
+    if bad == "dtype":
+        r["packed"] = r["packed"].double()
+    elif bad == "strided":
+        r["packed"] = r["packed"].transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "shape":
+        r["color"] = r["color"][..., :3].contiguous()
+    else:
+        flat = torch.zeros(r["packed"].numel() + 1, device=r["packed"].device)
+        flat[1:] = r["packed"].reshape(-1)
+        r["packed"] = flat[1:].reshape(r["packed"].shape)
+    with pytest.raises((TypeError, ValueError)):
+        kn.composite_tiles_fwd_v2(r["packed"], r["color"], r["counts"], TILE)
+
+
+def test_render_kernel_v2_card_vs_cpu(dev):
+    """``rasterize(kernel_v=2)``: the row-major kernels on the card against
+    their plain versions on CPU tensors; one v2 forward and one v2 backward
+    launch, none of the other kernels."""
+    from exavatar_release_tpu_torch.core.camera import Camera
+    from exavatar_release_tpu_torch.ops.rasterizer import RasterizeSettings, rasterize
+
+    rng = np.random.default_rng(6)
+    n, H, W, f = 400, 96, 256, 150.0
+    z = rng.uniform(2.0, 4.0, (n, 1))
+    d = dict(
+        means3d=np.concatenate([rng.uniform(-0.5, 0.5, (n, 1)) * (W / f) * z,
+                                rng.uniform(-0.5, 0.5, (n, 1)) * (H / f) * z, z], 1),
+        scales=np.exp(rng.uniform(np.log(0.02), np.log(0.1), (n, 3))),
+        quats=rng.normal(size=(n, 4)), opacities=rng.uniform(0.3, 0.95, (n, 1)),
+        rgbs=rng.uniform(0, 1, (n, 3)))
+    d = {k: v.astype(np.float32) for k, v in d.items()}
+    s = RasterizeSettings(tile_h=32, tile_w=128, max_per_tile=512, kernel_v=2)
+
+    def grads(device):
+        cam = Camera(torch.eye(3, device=device), torch.zeros(3, device=device),
+                     torch.tensor([f, f], device=device),
+                     torch.tensor([W / 2.0, H / 2.0], device=device))
+        args = [torch.from_numpy(v).to(device).requires_grad_(True) for v in d.values()]
+        bg = torch.tensor([0.2, 0.4, 0.6], device=device, requires_grad=True)
+        o = rasterize(*args, torch.ones(n, dtype=torch.bool, device=device), cam, (H, W), bg, s)
+        assert int(o["n_dropped"]) == 0
+        loss = (o["img"] ** 2).sum() + o["depth"].sum() + (o["mask"] * 0.5).sum()
+        return [g.cpu() for g in torch.autograd.grad(loss, args + [bg])]
+
+    before = {k: k.launches for k in kn.KERNELS}
+    got = grads(dev)
+    after = {k.__name__: k.launches - before[k] for k in kn.KERNELS}
+    assert after == {k.__name__: int(k in (kn.composite_tiles_fwd_v2, kn.composite_tiles_bwd_v2))
+                     for k in kn.KERNELS}
+    # The packing's transpose forms d/d(gx) as A (sum dq lx - gx sum dq) + ...:
+    # sums of size |dq| * 128 px cancel down to |dq| * a few px, and the conic's
+    # gradient cancels twice, so the last-bit differences between the kernel's
+    # atomic sums and the plain version's come out some 1e3 times larger in
+    # the inputs' gradients. The tolerance is the one the JAX package holds its
+    # own kernel_v=2 to (tests/test_rasterizer.py, test_kernel_v2_matches_v1):
+    # 5e-4 of the leaf's largest value plus 2e-3 relative.
+    for g, w in zip(got, grads("cpu")):
+        scale = max(1e-3, float(w.abs().max()))
+        assert bool(((g - w).abs() <= 5e-4 * scale + 2e-3 * w.abs()).all())
 
 
 def test_failed_build_raises(dev, tmp_path, monkeypatch):

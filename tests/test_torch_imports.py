@@ -42,6 +42,30 @@ def test_module_list_covers_the_frame_modules():
     assert not missing, missing
 
 
+# the train step's modules, and the row-major path's
+TRAIN_MODULES = ("train.optim", "train.checkpoint", "train.loop", "apps.train", "avatar.scene",
+                 "avatar.convert", "ops.rasterizer.preprocess", "ops.rasterizer.kernels")
+
+
+def test_module_list_covers_the_train_modules():
+    mods = _port_modules()
+    missing = [m for m in TRAIN_MODULES if m not in mods]
+    assert not missing, missing
+
+
+def test_each_train_module_imports_alone_without_jax():
+    """Every new module in a clean process of its own: importing it first
+    (before any other module of the port) must work and load no JAX."""
+    code = (
+        "import sys, importlib\n"
+        "importlib.import_module('exavatar_release_tpu_torch.' + sys.argv[1])\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert not bad, bad\n" % (FORBIDDEN,)
+    )
+    for m in ("train.optim", "train.checkpoint", "apps.train", "avatar.convert"):
+        subprocess.run([sys.executable, "-c", code, m], cwd=REPO, check=True, timeout=120)
+
+
 def _imported_roots(path):
     tree = ast.parse(open(path).read(), filename=path)
     for node in ast.walk(tree):
