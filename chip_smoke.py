@@ -85,13 +85,19 @@ FWD_KERNELS = ("composite_tiles_fwd_cm", "composite_pairs_fwd_rg")
 BWD_KERNELS = ("composite_tiles_bwd_cm", "composite_pairs_bwd_rg")
 RM_FWD_KERNELS = ("composite_tiles_fwd_v2", "composite_tiles_fwd")
 RM_BWD_KERNELS = ("composite_tiles_bwd_v2", "composite_tiles_bwd")
-ALL_KERNELS = FWD_KERNELS + BWD_KERNELS + RM_FWD_KERNELS + RM_BWD_KERNELS
+# the measuring kernels of the probe tools
+PROBE_KERNELS = ("composite_tiles_fwd_variant", "composite_tiles_bwd_variant", "tile_windows")
+ALL_KERNELS = FWD_KERNELS + BWD_KERNELS + RM_FWD_KERNELS + RM_BWD_KERNELS + PROBE_KERNELS
 KERNEL_SOURCE = {k: "exavatar_release_tpu_torch/csrc/composite.cu" for k in FWD_KERNELS}
 KERNEL_SOURCE.update({k: "exavatar_release_tpu_torch/csrc/composite_bwd.cu" for k in BWD_KERNELS})
 KERNEL_SOURCE.update({k: "exavatar_release_tpu_torch/csrc/composite_rm.cu"
-                      for k in RM_FWD_KERNELS + RM_BWD_KERNELS})
+                      for k in RM_FWD_KERNELS + RM_BWD_KERNELS + PROBE_KERNELS[:2]})
+KERNEL_SOURCE["tile_windows"] = "exavatar_release_tpu_torch/csrc/windows.cu"
 _PK = "exavatar_release_tpu/ops/rasterizer/pallas_kernels.py"
 REPLACES = {
+    "composite_tiles_fwd_variant": "tools/kvariants.py:393",
+    "composite_tiles_bwd_variant": "tools/kvariants.py:429",
+    "tile_windows": "tools/win_probe.py:46",
     "composite_tiles_fwd_cm": f"{_PK}:666",
     "composite_tiles_bwd_cm": f"{_PK}:716",
     "composite_pairs_fwd_rg": f"{_PK}:1389",
@@ -627,6 +633,10 @@ def phase_animate(device, img=(1080, 1920), focal=1200.0, dense_k=16384, timing_
         err1, err2 = max_err(out1, ref1), max_err(out2, ref2)
         check("composite_tiles_fwd_cm vs plain (frame 0)", within(err1, TOL), f"{err1}")
         check("composite_pairs_fwd_rg vs plain (frame 0)", within(err2, TOL), f"{err2}")
+        # the window kernel (kernel 11) on this frame's sorted pairs
+        ok_w, detail = windows_on_binning(ind.screen, (H, W), ind.tile_shape, dense_k, b,
+                                          dense.pairs_per_gaussian * a.mean_3d.shape[0])
+        check("tile_windows on frame 0's binning", ok_w, detail)
 
         live_rows = int(torch.clamp(b.tile_counts.long(), max=ind.rows.shape[2]).sum())
         T, P = out1.shape[0], out1.shape[2]
@@ -702,9 +712,9 @@ def build_frame(device, img=(1080, 1920), focal=1200.0, scene_capacity=1 << 15,
     ``scene_live`` Gaussians from a seeded point cloud scattered around and
     behind the subject, LPIPS with seeded random weights, a seeded face
     texture and one seeded training frame."""
-    import numpy as np
     import torch
 
+    from exavatar_release_tpu_torch.apps.common import synthetic_face_mesh
     from exavatar_release_tpu_torch.avatar import scene as sc
     from exavatar_release_tpu_torch.avatar.model import AvatarTrainables, FrameData, build_statics
     from exavatar_release_tpu_torch.avatar.param_dict import init_param_frames
@@ -721,17 +731,7 @@ def build_frame(device, img=(1080, 1920), focal=1200.0, scene_capacity=1 << 15,
 
     # synthetic face mesh: the faces wholly inside the face region, over
     # face_vertex_idx order, with a planar UV from the template
-    fv = prior.face_vertex_idx.cpu().numpy()
-    faces = a.faces.cpu().numpy()
-    inv = -np.ones(a.num_vertices, np.int64)
-    inv[fv] = np.arange(fv.size)
-    face_faces = inv[faces[(inv[faces] >= 0).all(axis=1)]]
-    if face_faces.size == 0:
-        face_faces = np.zeros((1, 3), np.int64)
-    pts = a.v_template.cpu().numpy()[fv]
-    lo, hi = pts.min(0), pts.max(0)
-    uv = ((pts[:, :2] - lo[:2]) / np.maximum(hi[:2] - lo[:2], 1e-6)).astype(np.float32)
-    statics = build_statics(prior, buffers, face_faces, uv, face_faces)
+    statics = build_statics(prior, buffers, *synthetic_face_mesh(prior))
 
     xyz = torch.stack([u(-6, 6, scene_live), u(-3, 4, scene_live), u(2, 10, scene_live)], dim=1)
     state = sc.init_from_point_cloud(xyz, u(0, 1, scene_live, 3), torch.zeros(3, device=device),
@@ -1404,6 +1404,419 @@ def phase_train(device, steps=4, timing_iters=2, grow_to=1 << 16, start_kw=None,
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 7: the probe tools at their defaults (kernels 9-11)
+# --------------------------------------------------------------------------
+
+
+def rm_resources() -> dict:
+    """{(fwd|bwd, variant id): (registers, shared bytes)} of the LOCALIZE
+    instantiations of csrc/composite_rm.cu's two kernel templates, from
+    ptxas's report in the build log (empty off the card)."""
+    import re
+
+    from exavatar_release_tpu_torch import cuda_build
+
+    try:
+        text = cuda_build.build_log("composite_rm")
+    except OSError:
+        return {}
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"entry function '\S*composite_rm_(fwd|bwd)_kernelILb1ELi(\d+)E", line)
+        if m:
+            cur = (m.group(1), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and cur is not None:
+            out[cur] = (int(m.group(1)), int(m.group(2)))
+            cur = None
+    return out
+
+
+def windows_on_binning(screen, img, tile_shape, K, binning, max_pairs):
+    """The window kernel on a real binning's sorted pairs against the
+    binning's own windows (``binning._windows``), integer for integer:
+    (equal, detail)."""
+    import torch
+
+    from exavatar_release_tpu_torch.ops.rasterizer import binning as bnm
+    from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
+
+    n = screen.mean2d.shape[0]
+    _, _, rank_sorted, starts, _, _, _, _ = bnm._compact_sorted_pairs(
+        screen.mean2d, screen.radius, screen.depth, screen.in_frustum, img, *tile_shape,
+        max_pairs, screen.extent)
+    got = kn.tile_windows(starts.int(), rank_sorted.int(), K, n)
+    same = torch.equal(got, binning.tile_indices)
+    return same, (f"(T, K) = {tuple(got.shape)} from {int(starts[-1])} sorted pairs equals the "
+                  f"binning's windows: {same}")
+
+
+def phase_probes(device, n=100_000, check_tiles=16, iters=10, win_inputs=None) -> dict:
+    """``tools.kvariants`` and ``tools.win_probe`` as a user runs them, at
+    their defaults: every variant against its plain version on the first
+    ``check_tiles`` tiles (forward 1e-5 of each output's max, backward each
+    row against its own max, GRAD_TOL), base bit-equal to kernels 5 and 6
+    (the backward to atomics order, 1e-6 of each row), every exact variant
+    within those limits of base; then, counters at 0 just before and read
+    just after, the tools' timing runs on the whole scene; the window kernel
+    integer for integer against the binning's gather, at the tool's seeded
+    inputs and on the scene's own binning; each variant's bound from its own
+    plain version's visits on the whole scene. Rows 9 and 10 of the kernels
+    line take the mean launch of the variants other than base, which is
+    kernel 5 / 6 itself and counts there. ``win_inputs`` (starts, rank_pad, K, n)
+    replaces the tool's seeded window inputs (a rehearsal at a small size)."""
+    import torch
+
+    from exavatar_release_tpu_torch.ops.rasterizer import binning as bnm
+    from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
+    from exavatar_release_tpu_torch.tools import kvariants as kv
+    from exavatar_release_tpu_torch.tools import win_probe as wp
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    res = {"ok": True}
+
+    def check(name, cond, detail):
+        res["ok"] &= bool(cond)
+        log(f"[probes] {name}: {detail} {'ok' if cond else 'FAIL'}")
+
+    t0 = time.perf_counter()
+    s = kv.build_scene(n, device=device)
+    T, K = s["quad"].shape[:2]
+    bn = s["binning"]
+    live_rows = int(torch.clamp(s["counts"].long(), max=K).sum())
+    log(f"[probes] scene: {n} Gaussians, {T} tiles of {s['tile_shape']}, K={K}, {live_rows} live "
+        f"rows, {int(bn.n_truncated)} pairs past K, built in {time.perf_counter() - t0:.1f} s")
+
+    # ---- every variant against its plain version on the first tiles
+    sub = kv.sub_scene(s, check_tiles)
+    P = s["tile_shape"][0] * s["tile_shape"][1]
+    g = torch.Generator(device="cpu").manual_seed(7)
+    cot = (torch.randn(check_tiles, P, 4, generator=g).to(device),
+           torch.randn(check_tiles, P, 1, generator=g).to(device))
+    f5 = kn.composite_tiles_fwd(sub["quad"], sub["color"], sub["counts"], sub["tile_shape"],
+                                sub["origins"])
+    b6 = kn.composite_tiles_bwd(sub["quad"], sub["color"], sub["counts"], *cot, *f5,
+                                sub["tile_shape"], sub["origins"])
+
+    def fwd_err(got, want):
+        return max(own_scale_err(got[0], want[0]), own_scale_err(got[1], want[1]))
+
+    errs = {}
+    base_f = kv.fwd("base", sub)
+    sync()
+    check("fwd/base == composite_tiles_fwd with origins", torch.equal(base_f[0], f5[0])
+          and torch.equal(base_f[1], f5[1]), "bit for bit")
+    for v in kn.FWD_VARIANTS:
+        got = kv.fwd(v, sub)
+        want = kv.fwd(v, sub, plain=True)
+        sync()
+        e = fwd_err(got, want)
+        errs[f"fwd/{v}"] = max(float((got[0] - want[0]).abs().max()),
+                               float((got[1] - want[1]).abs().max()))
+        line = f"{e:.3e} of each output's max (limit 1e-5)"
+        ok = e <= 1e-5
+        if v in kn.EXACT_VARIANTS:
+            eb = fwd_err(got, base_f)
+            ok &= eb <= 1e-5
+            line += f"; vs base {eb:.3e}"
+        check(f"fwd/{v} vs plain", ok, line)
+    base_b = kv.bwd("base", sub, cot, f5)
+    r = rm_grad_rows(base_b, b6)
+    check("bwd/base == composite_tiles_bwd with origins", r["max_row_rel_err"] <= 1e-6,
+          f"worst row {r['max_row_rel_err']:.3e} of its own max (atomics order; limit 1e-6)")
+    for v in kn.BWD_VARIANTS:
+        got = kv.bwd(v, sub, cot, f5)
+        want = kv.bwd(v, sub, cot, f5, plain=True)
+        sync()
+        errs[f"bwd/{v}"] = max(float((got[0] - want[0]).abs().max()),
+                               float((got[1] - want[1]).abs().max()))
+        if v == "nograd":
+            check("bwd/nograd", not bool(got[0].any() or got[1].any()), "exact zeros")
+            continue
+        r = rm_grad_rows(got, want)
+        ok, line = r["ok"], (f"worst row {r['max_row_rel_err']:.3e} of its own max "
+                             f"(limit {GRAD_TOL})")
+        if v in kn.EXACT_VARIANTS:
+            rb = rm_grad_rows(got, base_b)
+            ok &= rb["ok"]
+            line += f"; vs base {rb['max_row_rel_err']:.3e}"
+        check(f"bwd/{v} vs plain", ok, line)
+    del sub, cot, f5, b6, base_f, base_b
+
+    # ---- the tools' runs: the path the counters read
+    if win_inputs is None:
+        starts, rank_pad = wp.seeded_inputs(device)
+        wK, wn = wp.K, wp.N
+    else:
+        starts, rank_pad, wK, wn = win_inputs
+    reset_launches()
+    probe = kv.run_probes(s, iters, log=lambda m: log(f"[probes] {m}"))
+    win = wp.run_probe(starts, rank_pad, wK, wn, iters, log=lambda m: log(f"[probes] {m}"))
+    sync()
+    res["launches"] = read_launches()
+    log(f"[probes] launches of the tools' runs: {res['launches']}")
+    for k in PROBE_KERNELS:
+        check(f"{k} launched", not on_card or res["launches"][k] > 0,
+              f"{res['launches'][k]} launches")
+    check("win_probe parity at its defaults", win["parity"], "integer for integer")
+
+    # ---- the window kernel on the scene's own binning
+    ok, detail = windows_on_binning(s["screen"], kv.IMG, s["tile_shape"], K, bn,
+                                    bnm.default_max_pairs(n, s["tile_shape"][0]))
+    check("tile_windows on the scene's binning", ok, detail)
+
+    # ---- each variant's work (its plain version's visit count, for the
+    # attribution: a stub can change how early pixels end), the bounds from
+    # base's, and the plain versions' times, on the whole scene
+    args = (s["quad"], s["color"], s["counts"])
+    ref_f = kn.composite_tiles_fwd(*args, s["tile_shape"], s["origins"])
+    ones = (torch.ones_like(ref_f[0]), torch.ones_like(ref_f[1]))
+    plain_ms, work, hits = {}, {}, {}
+    for v in kn.FWD_VARIANTS:
+        t0 = time.perf_counter()
+        _, _, vis = kn.composite_tiles_fwd_variant_plain_with_visits(v, *args, s["tile_shape"],
+                                                                     s["origins"])
+        sync()
+        plain_ms[f"fwd/{v}"] = 1e3 * (time.perf_counter() - t0)
+        work[f"fwd/{v}"] = int(vis.sum())
+    for v in kn.BWD_VARIANTS:
+        t0 = time.perf_counter()
+        _, _, st = kn.composite_tiles_bwd_variant_plain_with_stats(
+            v, *args, *ones, *ref_f, s["tile_shape"], s["origins"])
+        sync()
+        plain_ms[f"bwd/{v}"] = 1e3 * (time.perf_counter() - t0)
+        work[f"bwd/{v}"], hits[f"bwd/{v}"] = st.visits, st.hits
+    f_bytes = (live_rows * RM_BYTES_PER_ROW + T * P * BYTES_PER_PIXEL) / PEAK_BYTES
+    b_bytes = (2 * live_rows * RM_BYTES_PER_ROW + T * P * BWD_BYTES_PER_PIXEL) / PEAK_BYTES
+
+    def bound(key):
+        """(ms, bound_by) of one variant from its own plain version's work:
+        nograd's replay skips the ten adds of the reduction over pixels."""
+        ops = work[key] * OPS_PER_VISIT
+        if key.startswith("bwd/"):
+            ops += hits[key] * (OPS_PER_HIT - (10 if key == "bwd/nograd" else 0))
+        ops_s, bytes_s = ops / PEAK_F32_FLOPS, f_bytes if key.startswith("fwd/") else b_bytes
+        return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
+
+    wT = starts.shape[0] - 1
+    live_w = int(torch.clamp(starts[1:].long() - starts[:-1].long(), max=wK).sum())
+    w_bytes = 4 * (live_w + wT * wK + wT + 1) / PEAK_BYTES
+    fw, bw = probe["fwd"], probe["bwd"]
+    regs = rm_resources()
+    res["kernel_stats"] = {}
+    mean = lambda xs: sum(xs) / len(xs)
+    for d, times, name in (("fwd", fw, "composite_tiles_fwd_variant"),
+                           ("bwd", bw, "composite_tiles_bwd_variant")):
+        # the row's own launches: base is kernel 5 / 6 and counts there
+        own = [v for v in times if v != "base"]
+        bounds = {v: bound(f"{d}/{v}") for v in times}
+        res["kernel_stats"][name] = {
+            "ms": mean([times[v] for v in own]),
+            "ms_of": f"mean per launch over the {len(own)} variants other than base",
+            "plain_ms": mean([plain_ms[f"{d}/{v}"] for v in own]),
+            "bound_ms": mean([bounds[v][0] for v in own]),
+            "bound_by": bounds[own[0]][1],
+            "max_abs_err": max(errs[f"{d}/{v}"] for v in own),
+            "variants_ms": times, "variants_bound_ms": {v: b[0] for v, b in bounds.items()},
+            "variants_registers": {v: regs.get((d, kn.VARIANT_IDS[v])) for v in times}}
+    res["kernel_stats"]["tile_windows"] = {
+        "ms": win["ms"]["kernel"], "plain_ms": win["ms"]["gather"],
+        "library_ms": win["ms"]["gather"], "bound_ms": 1e3 * w_bytes, "bound_by": "bytes",
+        "max_abs_err": 0.0 if win["parity"] else math.inf}
+    log(f"[probes] bytes bounds: forward {1e3 * f_bytes:.6f} ms, backward {1e3 * b_bytes:.6f} "
+        f"ms; windows {1e3 * w_bytes:.6f} ms ({live_w} live entries of {wT} x {wK})")
+    for d, times in (("fwd", fw), ("bwd", bw)):
+        b_ms, b_work = times["base"], work[f"{d}/base"]
+        for k, v in times.items():
+            w = work[f"{d}/{k}"]
+            extra = f", {hits[f'{d}/{k}']} contributing" if d == "bwd" else ""
+            log(f"[probes] {d}/{k}: {v:.4f} ms ({v - b_ms:+.4f} = {100 * (v / b_ms - 1):+.1f}% "
+                f"of base), {w} visits{extra} ({w / b_work:.3f} x base), {1e9 * v / w:.4f} ps "
+                f"per visit ({100 * ((v / w) / (b_ms / b_work) - 1):+.1f}% of base's); bound "
+                f"{bound(f'{d}/{k}')[0]:.6f} ms; registers, shared bytes "
+                f"{regs.get((d, kn.VARIANT_IDS[k]))}; plain {plain_ms[f'{d}/{k}']:.1f} ms")
+    res["kernel_stats"]["composite_tiles_fwd_variant"]["variants_visits"] = {
+        k: work[f"fwd/{k}"] for k in fw}
+    res["kernel_stats"]["composite_tiles_bwd_variant"]["variants_visits"] = {
+        k: work[f"bwd/{k}"] for k in bw}
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 8: the avatar CLIs on a subject directory
+# --------------------------------------------------------------------------
+
+
+def write_subject(root: str, img=(1080, 1920), n_frames: int = 3, n_points: int = 5000,
+                  focal: float = 1200.0, seed: int = 0) -> None:
+    """A seeded subject directory in the reference layout, everything
+    ``data.subject.load_subject`` reads, written without cv2: COLMAP text
+    (one PINHOLE camera, near-identity extrinsics per frame, a point cloud
+    behind the subject), RGB frames and masks as PNG (utils/png.py),
+    whole-body keypoints inside the mask, SMPL-X parameters with the subject
+    2.5 m in front of the camera, identity tables and the train split."""
+    import json
+
+    import numpy as np
+
+    from exavatar_release_tpu_torch.utils.png import write_png
+
+    H, W = img
+    rng = np.random.default_rng(seed)
+    for d in ("sparse", "images", "masks", "keypoints_whole_body", "smplx_optimized/smplx_params"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    with open(os.path.join(root, "sparse", "cameras.txt"), "w") as f:
+        f.write(f"# cameras\n1 PINHOLE {W} {H} {focal} {focal} {W / 2} {H / 2}\n")
+    with open(os.path.join(root, "sparse", "images.txt"), "w") as f:
+        f.write("# images\n")
+        for i in range(n_frames):
+            q = np.concatenate([[1.0], rng.normal(0, 0.02, 3)])
+            q /= np.linalg.norm(q)
+            t = rng.normal(0, 0.05, 3)
+            f.write(f"{i + 1} {' '.join(map(str, q))} {' '.join(map(str, t))} 1 {i}.png\n0 0 -1\n")
+    with open(os.path.join(root, "sparse", "points3D.txt"), "w") as f:
+        f.write("# points\n")
+        xyz = np.stack([rng.uniform(-4, 4, n_points), rng.uniform(-2.5, 2.5, n_points),
+                        rng.uniform(4, 12, n_points)], 1)
+        rgb = rng.integers(0, 256, (n_points, 3))
+        f.writelines(f"{i} {x} {y} {z} {r} {g} {b} 0.1\n"
+                     for i, ((x, y, z), (r, g, b)) in enumerate(zip(xyz, rgb)))
+    x0, x1, y0, y1 = int(0.4 * W), int(0.6 * W), int(0.12 * H), int(0.95 * H)
+    for i in range(n_frames):
+        coarse = rng.integers(0, 256, (H // 8 + 1, W // 8 + 1, 3), np.uint8)
+        write_png(os.path.join(root, "images", f"{i}.png"),
+                  np.kron(coarse, np.ones((8, 8, 1), np.uint8))[:H, :W])
+        mask = np.zeros((H, W), np.uint8)
+        mask[y0:y1, x0:x1] = 255
+        write_png(os.path.join(root, "masks", f"{i}.png"), mask)
+        kpt = np.concatenate([rng.uniform(x0, x1, (135, 1)), rng.uniform(y0, y1, (135, 1)),
+                              rng.uniform(0.6, 1.0, (135, 1))], 1)
+        with open(os.path.join(root, "keypoints_whole_body", f"{i}.json"), "w") as f:
+            json.dump(kpt.tolist(), f)
+        params = {
+            "root_pose": [math.pi, 0.0, 0.0], "body_pose": rng.normal(0, 0.1, (21, 3)).tolist(),
+            "jaw_pose": rng.normal(0, 0.05, 3).tolist(), "leye_pose": [0, 0, 0],
+            "reye_pose": [0, 0, 0], "lhand_pose": rng.normal(0, 0.1, (15, 3)).tolist(),
+            "rhand_pose": rng.normal(0, 0.1, (15, 3)).tolist(),
+            "expr": rng.normal(0, 0.3, 8).tolist(), "trans": [0.0, 0.1, 2.5],
+        }
+        with open(os.path.join(root, "smplx_optimized", "smplx_params", f"{i}.json"), "w") as f:
+            json.dump(params, f)
+    for name, shape in (("shape_param.json", (16,)), ("face_offset.json", (10, 3)),
+                        ("joint_offset.json", (55, 3)), ("locator_offset.json", (55, 3))):
+        with open(os.path.join(root, "smplx_optimized", name), "w") as f:
+            json.dump(np.zeros(shape).tolist(), f)
+    with open(os.path.join(root, "train_split.txt"), "w") as f:
+        f.write("".join(f"{i}.png\n" for i in range(n_frames)))
+
+
+def phase_apps(device, img=(1080, 1920), n_frames=3, n_points=5000, triplane=(32, 128),
+               num_views=4, extra=()) -> dict:
+    """The four CLIs as a user runs them, on a subject directory written by
+    ``write_subject``: ``apps.train.main`` (native frame loader, 2 epochs of
+    ``n_frames`` steps, a snapshot each), ``apps.test.main`` and
+    ``apps.evaluate.main`` on the last snapshot, ``apps.animate.main`` with a
+    turntable camera over ``num_views`` motion files. Counters at 0 just
+    before the train run and read just after the animate run. ``extra``:
+    more CLI options for every call (``--scene_capacity`` for a rehearsal at
+    a small size)."""
+    import json
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from exavatar_release_tpu_torch.apps import animate, evaluate, test, train
+    from exavatar_release_tpu_torch.avatar.config import AvatarConfig
+    from exavatar_release_tpu_torch.data.subject import read_rgb
+    from exavatar_release_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
+
+    res = {"ok": True}
+
+    def check(name, cond, detail):
+        res["ok"] &= bool(cond)
+        log(f"[apps] {name}: {detail} {'ok' if cond else 'FAIL'}")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_apps_")
+    root, out = os.path.join(work, "subject"), os.path.join(work, "out")
+    t0 = time.perf_counter()
+    write_subject(root, img, n_frames, n_points)
+    H, W = img
+    log(f"[apps] subject {W}x{H}, {n_frames} frames, {n_points} points written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    common = ["--subject_root", root, "--device", device, "--triplane_ch", str(triplane[0]),
+              "--triplane_res", str(triplane[1]), *extra]
+    reset_launches()
+    t0 = time.perf_counter()
+    run = train.main(common + ["--allow_random_lpips", "--loader", "native", "--epochs", "2",
+                               "--repeat", "1", "--out_dir", out])
+    res["train_s"] = time.perf_counter() - t0
+    hist = run.history
+    res["step_s"] = [h["step_s"] for h in hist]
+    res["read_s"] = [h["read_s"] for h in hist]
+    log(f"[apps] train: {len(hist)} steps in {res['train_s']:.2f} s; per step, step s "
+        f"{[round(x, 4) for x in res['step_s']]}, read s {[round(x, 4) for x in res['read_s']]}; "
+        f"totals {[round(h['total'], 4) for h in hist]}; settings at the end {run.settings}")
+    model_dir = os.path.join(out, "model_dump")
+    snaps = sorted(f for f in os.listdir(model_dir) if f.endswith(".npz"))
+    ckpt = latest_checkpoint(model_dir)
+    cfg = AvatarConfig(triplane_ch=triplane[0], triplane_res=triplane[1])
+    loaded = [load_checkpoint(os.path.join(model_dir, f), cfg, device) for f in snaps]
+    finite = all(np.isfinite(h["total"]) for h in hist)
+    check("train", len(hist) == 2 * n_frames and snaps == ["snapshot_0.npz", "snapshot_1.npz"]
+          and [e for _, e in loaded] == [0, 1] and loaded[-1][0].itr == 2 * n_frames and finite,
+          f"{len(hist)} steps, snapshots {snaps} load (epochs {[e for _, e in loaded]}), "
+          f"losses finite")
+    del loaded
+
+    result_dir = os.path.join(out, "result")
+    t0 = time.perf_counter()
+    test.main(common + ["--ckpt", ckpt, "--out_dir", result_dir])
+    res["test_s"] = time.perf_counter() - t0
+    blank = []
+    for i in range(n_frames):
+        im = read_rgb(os.path.join(result_dir, f"{i}_scene_human_img_refined_composed.png"))
+        if float(im.std()) == 0.0:
+            blank.append(i)
+    n_png = len([f for f in os.listdir(result_dir) if f.endswith(".png")])
+    check("test", n_png == 9 * n_frames and not blank,
+          f"{n_png} PNGs in {res['test_s']:.2f} s, blank composed frames {blank}")
+
+    t0 = time.perf_counter()
+    metrics = evaluate.main(common + ["--ckpt", ckpt, "--out_json",
+                                      os.path.join(out, "metrics.json")])
+    res["evaluate_s"] = time.perf_counter() - t0
+    with open(os.path.join(out, "metrics.json")) as f:
+        written = json.load(f)
+    check("evaluate", written == metrics and all(math.isfinite(v) for v in metrics.values()),
+          f"{metrics} in {res['evaluate_s']:.2f} s")
+
+    motion = os.path.join(work, "motion")
+    os.makedirs(motion)
+    for v in range(num_views):
+        shutil.copy(os.path.join(root, "smplx_optimized", "smplx_params", f"{v % n_frames}.json"),
+                    os.path.join(motion, f"{v:04d}.json"))
+    t0 = time.perf_counter()
+    frames = animate.main(common + ["--ckpt", ckpt, "--motion_dir", motion, "--view_rot",
+                                    "--num_views", str(num_views), "--out_dir",
+                                    os.path.join(out, "animate")])
+    res["animate_s"] = time.perf_counter() - t0
+    check("animate", len(frames) == num_views and all(os.path.exists(p) for p in frames),
+          f"{len(frames)} frames in {res['animate_s']:.2f} s")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    res["launches"] = read_launches()
+    log(f"[apps] launches of train, test, evaluate and animate: {res['launches']}")
+    loaded_mods = sorted({m.split(".")[0] for m in sys.modules} & {"cv2", "jax", "jaxlib"})
+    check("no cv2 and no jax loaded", not loaded_mods, f"{loaded_mods or 'none'} in sys.modules")
+    shutil.rmtree(work)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1427,7 +1840,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {lib}: {line.strip()}")
 
-    # ``--phases a,b`` runs a part (random, goldens, animate, frame, train) and
+    # ``--phases a,b`` runs a part (random, goldens, animate, frame, train,
+    # probes, apps) and
     # prints no result line: the contract needs every phase
     only = None
     if "--phases" in sys.argv[1:]:
@@ -1443,6 +1857,10 @@ def main() -> int:
     ok &= frm is None or frm["ok"]
     trn = phase_train("cuda") if want("train") else None
     ok &= trn is None or trn["ok"]
+    prb = phase_probes("cuda") if want("probes") else None
+    ok &= prb is None or prb["ok"]
+    app = phase_apps("cuda") if want("apps") else None
+    ok &= app is None or app["ok"]
     if only is not None:
         log(f"chip_smoke: phases {sorted(only)} {'passed' if ok else 'FAILED'}; a partial run "
             f"prints no result line")
@@ -1453,28 +1871,38 @@ def main() -> int:
         fwd = name in FWD_KERNELS + RM_FWD_KERNELS
         # channel-major and pair-major forward kernels: measured on the animate
         # frame's windows, their backward kernels on the train-mode frame's
-        # scene+human render; the row-major kernels on the trainer's
-        if name in RM_FWD_KERNELS + RM_BWD_KERNELS:
+        # scene+human render; the row-major kernels on the trainer's; the
+        # probe kernels at the probe tools' defaults
+        if name in PROBE_KERNELS:
+            st = prb["kernel_stats"][name]
+        elif name in RM_FWD_KERNELS + RM_BWD_KERNELS:
             st = trn["kernel_stats"][name]
         else:
             st = (anim if fwd else frm)["kernel_stats"][name]
         by_path = {"animate": anim["launches"][name],
                    **{f"frame_{k}": v[name] for k, v in frm["launches"].items()},
-                   **{k: v[name] for k, v in trn["launches"].items()}}
+                   **{k: v[name] for k, v in trn["launches"].items()},
+                   "probes": prb["launches"][name], "apps": app["launches"][name]}
         entry = {
             "name": name, "route": "cuda", "source": KERNEL_SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            # the largest difference from the plain version, random windows included
-            "max_abs_err": max(st["max_abs_err"],
-                               max(rnd[name].values()) if fwd else rnd[name]["max_abs_err"]),
+            "launches_by_path": by_path, "max_abs_err": st["max_abs_err"],
             "ms": st["ms"], "plain_ms": st["plain_ms"],
             "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
-            # no single PyTorch call composites Gaussians or differentiates that
-            "library_ms": None,
+            # no single PyTorch call composites Gaussians or differentiates
+            # that; the windows' is the binning's own gather
+            "library_ms": st.get("library_ms"),
         }
-        if not fwd:  # the figure the backward kernels are held to (GRAD_TOL)
-            entry["max_row_rel_err"] = max(st["max_row_rel_err"], rnd[name]["max_row_rel_err"])
+        if name in PROBE_KERNELS[:2]:
+            for k in ("ms_of", "variants_ms", "variants_bound_ms", "variants_registers"):
+                entry[k] = st[k]
+        elif name not in PROBE_KERNELS:
+            # the largest difference from the plain version, random windows included
+            entry["max_abs_err"] = max(st["max_abs_err"], max(rnd[name].values()) if fwd
+                                       else rnd[name]["max_abs_err"])
+            if not fwd:  # the figure the backward kernels are held to (GRAD_TOL)
+                entry["max_row_rel_err"] = max(st["max_row_rel_err"],
+                                               rnd[name]["max_row_rel_err"])
         kernels.append(entry)
     if not ok:
         print("chip_smoke: FAILED (see the lines above)", file=sys.stderr)

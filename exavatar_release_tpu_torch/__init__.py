@@ -8,15 +8,17 @@ kernel for Hopper (``csrc/``), built with nvcc at first use and bound with
 ctypes; each has a plain PyTorch twin that CPU tensors run through.
 
 Subpackages (ported so far: the animate render path, the differentiable
-frame and the whole train step with its trainer loop)
+frame, the whole train step with its trainer loop, the avatar CLIs and the
+kernel probes)
 -----------
 core      : rotations, cameras, geometry, spherical harmonics
 models    : SMPL-X body model (LBS, FK, subdivision, prior, synthetic assets)
 nn        : Linear -> GroupNorm -> ReLU MLP
 ops       : grid sampling, KNN, the differentiable 3DGS rasterizer and its
-            eight kernels (channel-major, pair-major and row-major, three
-            libraries under ``csrc/``), the face-mesh rasterizer, SSIM/PSNR,
-            LPIPS
+            kernels (channel-major, pair-major and row-major compositing,
+            the row-major kernels' stage probes, the per-tile window build:
+            four libraries under ``csrc/``), the face-mesh rasterizer,
+            SSIM/PSNR, LPIPS
 avatar    : human and scene Gaussians (with densify/prune and the opacity
             reset), per-frame poses, losses, ``forward_frame``, import and
             export of JAX weights and of the whole train state
@@ -24,8 +26,12 @@ train     : ``loss_and_grads`` and ``train_step``, Adam with named groups and
             schedules, densification cadence, the rasterizer's capacity
             governor, scene capacity growth, checkpoints in the JAX package's
             npz layout
-apps      : ``render_motion`` — animate a trained avatar with new poses;
-            ``train_loop`` — epochs of train steps over given frames
+data      : COLMAP text and the reference's subject directory layout
+native    : the threaded PNG decoder and prefetcher (C++, g++ at first use)
+utils     : logger and timer, a PNG writer, video export
+apps      : the CLIs ``train``, ``test``, ``evaluate`` and ``animate`` on a
+            subject directory, with ``train_loop`` and ``render_motion``
+tools     : ``kvariants`` and ``win_probe``, the kernel probes
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,2 @@
-"""Applications on the avatar: motion rendering and the training loop."""
+"""Applications on the avatar: the CLIs ``train``, ``test``, ``evaluate`` and
+``animate`` on a subject directory, the training loop and motion rendering."""

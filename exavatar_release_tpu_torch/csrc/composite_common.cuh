@@ -42,19 +42,24 @@ __device__ __forceinline__ void stage_row(float (*s)[kBlock], const float* __res
   for (int c = 8; c < 12; ++c) s[c - 2][threadIdx.x] = r[c * stride];
 }
 
-// Staged Gaussian j at pixel (px, py):
-//   q = log_op - 0.5 (A dx^2 + C dy^2) - B dx dy   (direct conic form)
-// Returns false when the pixel skips it (q > log_op, or exp(q) < 1/255);
-// else dx, dy and alpha_un = exp(q), the alpha before its clamp.
-__device__ __forceinline__ bool reaches(float (*s)[kBlock], int j, float px, float py,
-                                        float& dx, float& dy, float& alpha_un) {
+// Staged Gaussian j at pixel (px, py), in the direct conic form:
+//   q = log_op - 0.5 (A dx^2 + C dy^2) - B dx dy,  dx = px - gx, dy = py - gy
+__device__ __forceinline__ float conic_q(float (*s)[kBlock], int j, float px, float py,
+                                         float& dx, float& dy) {
   const float A = s[0][j], B = s[1][j], C = s[2][j];
   dx = px - s[3][j];
   dy = py - s[4][j];
-  const float log_op = s[5][j];
-  const float q = log_op - 0.5f * (A * (dx * dx) + C * (dy * dy)) - B * (dx * dy);
+  return s[5][j] - 0.5f * (A * (dx * dx) + C * (dy * dy)) - B * (dx * dy);
+}
+
+// Returns false when the pixel skips staged Gaussian j (q > log_op, or
+// exp(q) < 1/255); else dx, dy and alpha_un = exp(q), the alpha before its
+// clamp.
+__device__ __forceinline__ bool reaches(float (*s)[kBlock], int j, float px, float py,
+                                        float& dx, float& dy, float& alpha_un) {
+  const float q = conic_q(s, j, px, py, dx, dy);
   alpha_un = expf(q);
-  return (q <= log_op) && (alpha_un >= kAlphaMin);
+  return (q <= s[5][j]) && (alpha_un >= kAlphaMin);
 }
 
 // The same test for a row of pre-packed tile-local coefficients, staged as

@@ -23,6 +23,7 @@ LIBRARIES: Dict[str, tuple] = {
     "composite": ("csrc/composite.cu",),
     "composite_bwd": ("csrc/composite_bwd.cu",),
     "composite_rm": ("csrc/composite_rm.cu",),
+    "windows": ("csrc/windows.cu",),
 }
 # included by the sources above; hashed into every library's name
 HEADERS = ("csrc/composite_common.cuh",)

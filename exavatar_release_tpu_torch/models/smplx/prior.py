@@ -3,9 +3,9 @@
 
 Everything is precomputed once by ``build_prior``; the per-subject identity
 info is a separate ``SMPLXIDInfo`` passed explicitly through the model.
-This slice derives the part tables from the assets themselves (the
+The port derives the part tables from the assets themselves (the
 synthetic path); loading the released correspondence files waits for the
-apps slice.
+real-asset loaders (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 

@@ -5,7 +5,8 @@ lpips v0.1 semantics: input in [-1, 1], imagenet-style shift and scale,
 backbone features at 5 taps, channel unit normalisation, 1x1 linear heads,
 spatial mean, sum over taps. Weights load from the ``.npz`` layout the JAX
 package writes (conv weights are (O, I, kh, kw) in both packages); the
-conversion from torchvision checkpoints waits for the apps slice.
+conversion from torchvision checkpoints waits for the real-asset loaders
+(ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -96,6 +97,31 @@ def lpips_distance(params: LPIPSParams, img0: torch.Tensor, img1: torch.Tensor,
         else:
             total = total + torch.mean(dist)
     return total
+
+
+def init_lpips_random(seed: int = 1, net: str = "vgg", device="cuda") -> LPIPSParams:
+    """Architecture-correct LPIPS with seeded random weights (He-normal
+    convolutions, zero biases, small positive heads), for tests and for
+    running without converted pretrained weights. The distribution is the
+    JAX package's ``init_lpips_random``; the numbers, drawn from a
+    ``torch.Generator`` seeded with ``seed``, are not."""
+    if net == "vgg":
+        shapes, cin = [], 3
+        for ch, n_layers in VGG16_PLAN:
+            for _ in range(n_layers):
+                shapes.append((ch, cin, 3, 3))
+                cin = ch
+        tap_dims = [ch for ch, _ in VGG16_PLAN]
+    else:
+        shapes = [(64, 3, 11, 11), (192, 64, 5, 5), (384, 192, 3, 3), (256, 384, 3, 3),
+                  (256, 256, 3, 3)]
+        tap_dims = [64, 192, 384, 256, 256]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = lambda *sh: torch.randn(*sh, generator=g).to(device)
+    return LPIPSParams(
+        tuple(n(*s) * (2.0 / (s[1] * s[2] * s[3])) ** 0.5 for s in shapes),
+        tuple(torch.zeros(s[0], device=device) for s in shapes),
+        tuple(torch.relu(n(d)) * 0.1 + 0.01 for d in tap_dims), net)
 
 
 def load_lpips(npz_path: str, device="cuda") -> LPIPSParams:

@@ -3,11 +3,13 @@ versions (counterpart of exavatar_release_tpu/ops/rasterizer/pallas_kernels.py
 for ``composite_tiles_fwd_cm`` / ``composite_tiles_bwd_cm``,
 ``composite_pairs_fwd_rg`` / ``composite_pairs_bwd_rg`` and the row-major
 ``composite_tiles_fwd_v2`` / ``composite_tiles_bwd_v2`` /
-``composite_tiles_fwd`` / ``composite_tiles_bwd``, and of jax_ref.py).
+``composite_tiles_fwd`` / ``composite_tiles_bwd``, and of jax_ref.py), and
+the measuring kernels of the probe tools (the stage probes of
+tools/kvariants.py, the window build of tools/win_probe.py).
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor goes
 to the kernel (``csrc/composite.cu``, ``csrc/composite_bwd.cu``,
-``csrc/composite_rm.cu``), or the wrapper raises. There is no fallback. Each wrapper counts its launches in
+``csrc/composite_rm.cu``, ``csrc/windows.cu``), or the wrapper raises. There is no fallback. Each wrapper counts its launches in
 ``<wrapper>.launches``.
 
 The backward functions return the cotangent of the rows from the saved
@@ -578,8 +580,11 @@ def _lib_rm() -> ctypes.CDLL:
     lib.composite_tiles_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
     lib.composite_tiles_bwd_v2.argtypes = [_P] * 9 + [_I, _I, _I, _I, _P]
     lib.composite_tiles_bwd.argtypes = [_P] * 10 + [_I, _I, _I, _I, _P]
+    lib.composite_rm_fwd_variant.argtypes = [_I] + lib.composite_tiles_fwd.argtypes
+    lib.composite_rm_bwd_variant.argtypes = [_I] + lib.composite_tiles_bwd.argtypes
     for fn in (lib.composite_tiles_fwd_v2, lib.composite_tiles_fwd, lib.composite_tiles_bwd_v2,
-               lib.composite_tiles_bwd):
+               lib.composite_tiles_bwd, lib.composite_rm_fwd_variant,
+               lib.composite_rm_bwd_variant):
         fn.restype = _I
     return lib
 
@@ -592,9 +597,11 @@ def _check_rm(name: str, x: torch.Tensor, shape: tuple, device) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _fwd_rm(wrapper, tile_quad, tile_color, tile_counts, tile_shape, tile_origins):
-    """Checks, allocation and launch shared by the two forward wrappers;
-    ``wrapper`` is the one whose kernel and launch count are used."""
+def _fwd_rm(wrapper, tile_quad, tile_color, tile_counts, tile_shape, tile_origins,
+            variant: Optional[int] = None):
+    """Checks, allocation and launch shared by the forward wrappers;
+    ``wrapper`` is the one whose kernel and launch count are used, and
+    ``variant`` the stage probe's number for ``composite_tiles_fwd_variant``."""
     T, K, _ = tile_quad.shape
     th, tw = tile_shape
     dev = tile_quad.device
@@ -611,10 +618,12 @@ def _fwd_rm(wrapper, tile_quad, tile_color, tile_counts, tile_shape, tile_origin
     tail = (accum.data_ptr(), tfinal.data_ptr(), T, K, th, tw,
             torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
+        origins = None if tile_origins is None else tile_origins.data_ptr()
         if wrapper is composite_tiles_fwd_v2:
             rc = _lib_rm().composite_tiles_fwd_v2(*head, *tail)
+        elif variant is not None:
+            rc = _lib_rm().composite_rm_fwd_variant(variant, *head, origins, *tail)
         else:
-            origins = None if tile_origins is None else tile_origins.data_ptr()
             rc = _lib_rm().composite_tiles_fwd(*head, origins, *tail)
     _raise_on(rc, wrapper.__name__)
     wrapper.launches += 1
@@ -622,8 +631,8 @@ def _fwd_rm(wrapper, tile_quad, tile_color, tile_counts, tile_shape, tile_origin
 
 
 def _bwd_rm(wrapper, tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accum, tfinal,
-            tile_shape, tile_origins):
-    """Checks, allocation and launch shared by the two backward wrappers."""
+            tile_shape, tile_origins, variant: Optional[int] = None):
+    """Checks, allocation and launch shared by the backward wrappers."""
     T, K, _ = tile_quad.shape
     th, tw = tile_shape
     P = th * tw
@@ -648,10 +657,12 @@ def _bwd_rm(wrapper, tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accu
             dquad.data_ptr(), dcolor.data_ptr(), T, K, th, tw,
             torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
+        origins = None if tile_origins is None else tile_origins.data_ptr()
         if wrapper is composite_tiles_bwd_v2:
             rc = _lib_rm().composite_tiles_bwd_v2(*head, *tail)
+        elif variant is not None:
+            rc = _lib_rm().composite_rm_bwd_variant(variant, *head, origins, *tail)
         else:
-            origins = None if tile_origins is None else tile_origins.data_ptr()
             rc = _lib_rm().composite_tiles_bwd(*head, origins, *tail)
     _raise_on(rc, wrapper.__name__)
     wrapper.launches += 1
@@ -715,8 +726,319 @@ def composite_tiles_bwd(tile_quad, tile_color, tile_counts, g_accum, g_tfinal, a
 
 composite_tiles_bwd.launches = 0
 
+
+# --------------------------------------------------------------------------
+# stage probes: kernels 5 and 6 with origins, one stage stubbed or
+# reformulated (csrc/composite_rm.cu, the same kernel templates under a
+# compile-time variant; replace tools/kvariants.py:build_fwd and build_bwd).
+# The variants, their semantics and what each isolates are described at
+# "Stage probes" in composite_rm.cu.
+# --------------------------------------------------------------------------
+
+FWD_VARIANTS = ("base", "noexp", "nomm", "noskip", "logsp", "pipe", "chunk")
+BWD_VARIANTS = ("base", "noexp", "nomm", "nograd", "fusedgrad", "noT", "nodeloc", "logsp",
+                "noT+logsp", "pipe", "chunk")
+# the kernels' enum Variant
+VARIANT_IDS = {"base": 0, "noexp": 1, "nomm": 2, "noskip": 3, "logsp": 4, "pipe": 5, "nograd": 6,
+               "fusedgrad": 7, "noT": 8, "nodeloc": 9, "noT+logsp": 10, "chunk": 11}
+# variants whose output is base's, up to rounding; the others are stubs
+EXACT_VARIANTS = ("noskip", "logsp", "pipe", "fusedgrad", "noT", "noT+logsp", "chunk")
+PROBE_CHUNK = 256  # the stubs' chunk: one staging batch of the kernels
+# log(0.99) and log(1e-4): the log-space clamp and termination test
+LN_ALPHA_MAX = -0.01005033585350145
+LN_TERM_EPS = -9.210340371976182
+
+
+def _variant_id(variant: str, allowed) -> int:
+    if variant not in allowed:
+        raise ValueError(f"unknown variant {variant!r}; one of {allowed}")
+    return VARIANT_IDS[variant]
+
+
+def _probe_fns(variant: str):
+    """(E, L): exp and log1p, or the noexp stub's 0.25 x + 1 and 0.5 x."""
+    if variant == "noexp":
+        return (lambda x: x * 0.25 + 1.0), (lambda x: x * 0.5)
+    return torch.exp, torch.log1p
+
+
+def _chunk_end(k: int, n: torch.Tensor) -> torch.Tensor:
+    """(T, 1): row k closes its tile's chunk (a full staging batch, or the
+    tile's last row)."""
+    return (((k + 1) % PROBE_CHUNK == 0) | (k + 1 == n))[:, None]
+
+
+def composite_tiles_fwd_variant_plain_with_visits(
+    variant, tile_quad, tile_color, tile_counts, tile_shape, tile_origins,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``composite_tiles_fwd_variant``, a scan over each
+    tile's rows in the kernel's order, with the rows the kernel evaluates
+    at each pixel: (accum, tfinal, visits (T, P)). A stub can change how
+    early pixels end, and so the work: base, pipe and logsp evaluate rows up
+    to the one that ends the pixel, noskip every row, the chunked variants
+    every row of each chunk the pixel starts alive. noskip and pipe change
+    only how the kernel walks the rows: their output is base's."""
+    _variant_id(variant, FWD_VARIANTS)
+    if variant in ("base", "noskip", "pipe"):
+        acc, tf, visits = composite_rm_plain_with_visits(tile_quad, tile_color, tile_counts,
+                                                         tile_shape, tile_origins)
+        if variant == "noskip":
+            n = torch.clamp(tile_counts.long(), max=tile_quad.shape[1])
+            visits = n[:, None].expand_as(visits).contiguous()
+        return acc, tf, visits
+    T, K, _ = tile_quad.shape
+    dev = tile_quad.device
+    px, py = _tile_pixels(T, tile_shape, dev, tile_origins)
+    n = torch.clamp(tile_counts.long(), max=K)
+    E, L = _probe_fns(variant)
+    logsp = variant == "logsp"
+    acc = torch.zeros(4, T, px.shape[1], device=dev)
+    Tr = torch.full_like(px, 0.0 if logsp else 1.0)  # logsp: log T; chunked: T0
+    done = torch.zeros(px.shape, dtype=torch.bool, device=dev)
+    cum, kept, dead = torch.zeros_like(px), torch.zeros_like(px), torch.zeros_like(done)
+    visits = torch.zeros(px.shape, dtype=torch.int64, device=dev)
+    for k in range(int(n.max()) if T else 0):
+        live = (k < n)[:, None]
+        visits += live & ~done
+        q, log_op, _ = _conic_q(tile_quad[:, k], px, py)
+        e = E(q)
+        valid = (q <= log_op) & (e >= ALPHA_MIN) & live
+        alpha = torch.where(valid, torch.clamp(e, max=ALPHA_MAX), 0.0)
+        color = tile_color[:, k].T[:, :, None]
+        if logsp:
+            wl = torch.log1p(-alpha)
+            done = done | (valid & (Tr + wl < LN_TERM_EPS))
+            add = valid & ~done
+            w = torch.where(add, torch.exp(torch.clamp(q, max=LN_ALPHA_MAX) + Tr), 0.0)
+            acc = acc + w[None] * color
+            Tr = torch.where(add, Tr + wl, Tr)
+            continue
+        wlog = L(-alpha)
+        T_raw = E(wlog if variant == "nomm" else cum) * Tr
+        dead_k = (T_raw * (1.0 - alpha) < TERM_EPS) | done
+        add = live & ~dead_k
+        w = torch.where(add, alpha * T_raw, 0.0)
+        acc = acc + w[None] * color
+        kept = torch.where(add, kept + wlog, kept)
+        cum = cum + wlog
+        dead = torch.where(live, dead_k, dead)
+        end = live & _chunk_end(k, n)
+        Tr = torch.where(end, Tr * E(kept), Tr)
+        done = torch.where(end, dead, done)
+        cum, kept = torch.where(end, 0.0, cum), torch.where(end, 0.0, kept)
+    tfinal = torch.exp(Tr) if logsp else Tr
+    return acc.permute(1, 2, 0).contiguous(), tfinal[:, :, None], visits
+
+
+def composite_tiles_fwd_variant_plain(variant, tile_quad, tile_color, tile_counts, tile_shape,
+                                      tile_origins) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``composite_tiles_fwd_variant``: (accum, tfinal)."""
+    return composite_tiles_fwd_variant_plain_with_visits(variant, tile_quad, tile_color,
+                                                         tile_counts, tile_shape,
+                                                         tile_origins)[:2]
+
+
+def composite_tiles_bwd_variant_plain_with_stats(
+    variant, tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accum, tfinal, tile_shape,
+    tile_origins,
+) -> Tuple[torch.Tensor, torch.Tensor, BackwardStats]:
+    """Plain version of ``composite_tiles_bwd_variant``, the replay of the
+    variant's forward with each row's gradient summed over the tile's
+    pixels, and the replay's work (visits as in the forward's plain version,
+    and the contributing ones). pipe, fusedgrad and noT change only how the
+    kernel stages rows or sums over pixels: their output is base's; nograd's
+    is zero after base's replay."""
+    _variant_id(variant, BWD_VARIANTS)
+    if variant in ("base", "pipe", "fusedgrad", "noT", "nograd"):
+        dquad, dcolor, stats = composite_rm_bwd_plain_with_stats(
+            tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accum, tfinal, tile_shape,
+            tile_origins)
+        if variant == "nograd":
+            dquad, dcolor = torch.zeros_like(dquad), torch.zeros_like(dcolor)
+        return dquad, dcolor, stats
+    T, K, _ = tile_quad.shape
+    dev = tile_quad.device
+    dquad = torch.zeros(T, K, 8, device=dev)
+    dcolor = torch.zeros(T, K, 4, device=dev)
+    px, py = _tile_pixels(T, tile_shape, dev, tile_origins)
+    lx, ly = _tile_pixels(T, tile_shape, dev)
+    basis = (None, lx, ly, lx * lx, lx * ly, ly * ly)
+    n = torch.clamp(tile_counts.long(), max=K)
+    g = [g_accum[:, :, c] for c in range(4)]
+    A_p = (g[0] * accum[:, :, 0] + g[1] * accum[:, :, 1] + g[2] * accum[:, :, 2]
+           + g[3] * accum[:, :, 3] + g_tfinal[:, :, 0] * tfinal[:, :, 0])
+    E, L = _probe_fns(variant)
+    logsp = variant in ("logsp", "noT+logsp")
+    chunked = variant in ("noexp", "nomm", "chunk")
+    Tr = torch.full_like(px, 0.0 if logsp else 1.0)  # logsp: log T; chunked: T0
+    prefix = torch.zeros_like(px)  # chunked: the carry at the chunk start
+    done = torch.zeros(px.shape, dtype=torch.bool, device=dev)
+    cum, kept, chunk_prefix, last_prefix = (torch.zeros_like(px) for _ in range(4))
+    dead = torch.zeros_like(done)
+    visits = torch.zeros((), dtype=torch.int64, device=dev)
+    hits = torch.zeros((), dtype=torch.int64, device=dev)
+    for k in range(int(n.max()) if T else 0):
+        live = (k < n)[:, None]
+        visits += (live & ~done).sum()
+        q, log_op, extra = _conic_q(tile_quad[:, k], px, py)
+        col = tile_color[:, k]
+        cg = g[0] * col[:, 0:1] + g[1] * col[:, 1:2] + g[2] * col[:, 2:3] + g[3] * col[:, 3:4]
+        e = E(q)
+        valid = (q <= log_op) & (e >= ALPHA_MIN) & live
+        alpha = torch.where(valid, torch.clamp(e, max=ALPHA_MAX), 0.0)
+        if chunked:
+            wlog = L(-alpha)
+            T_raw = E(wlog if variant == "nomm" else cum) * Tr
+            dead_k = (T_raw * (1.0 - alpha) < TERM_EPS) | done
+            alpha_eff = torch.where(dead_k, 0.0, alpha)
+            w = alpha_eff * T_raw
+            if variant == "nomm":
+                P_incl = prefix + w * cg
+            else:
+                chunk_prefix = chunk_prefix + w * cg
+                P_incl = prefix + chunk_prefix
+            last_prefix = torch.where(live, P_incl, last_prefix)
+            hit = valid & ~dead_k
+            dq = torch.where(hit, (T_raw * cg - (A_p - P_incl) / (1.0 - alpha_eff)) * e, 0.0)
+            kept = torch.where(hit, kept + wlog, kept)
+            cum = cum + wlog
+            dead = torch.where(live, dead_k, dead)
+            end = live & _chunk_end(k, n)
+            Tr = torch.where(end, Tr * E(kept), Tr)
+            prefix = torch.where(end, last_prefix, prefix)
+            done = torch.where(end, dead, done)
+            cum, kept, chunk_prefix = (torch.where(end, 0.0, x) for x in (cum, kept, chunk_prefix))
+        else:
+            if logsp:
+                T_c, T_next = torch.exp(Tr), Tr + torch.log1p(-alpha)
+                done = done | (valid & (T_next < LN_TERM_EPS))
+            else:
+                T_c, T_next = Tr, Tr * (1.0 - alpha)
+                done = done | (valid & (T_next < TERM_EPS))
+            hit = valid & ~done
+            w = torch.where(hit, alpha * T_c, 0.0)
+            prefix = torch.where(hit, prefix + w * cg, prefix)
+            dq = torch.where(hit, (T_c * cg - (A_p - prefix) / (1.0 - alpha)) * e, 0.0)
+            Tr = torch.where(hit, T_next, Tr)
+        hits += hit.sum()
+        if variant == "nodeloc":
+            dquad[:, k, 0] = dq.sum(1)
+            for c in range(1, 6):
+                dquad[:, k, c] = (dq * basis[c]).sum(1)
+        else:
+            dquad[:, k, 0:6] = _conic_row_grad(dq, extra)
+        for c in range(4):
+            dcolor[:, k, c] = (w * g[c]).sum(1)
+    return dquad, dcolor, BackwardStats(int(visits), int(hits))
+
+
+def composite_tiles_bwd_variant_plain(variant, tile_quad, tile_color, tile_counts, g_accum,
+                                      g_tfinal, accum, tfinal, tile_shape,
+                                      tile_origins) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``composite_tiles_bwd_variant``: (dquad, dcolor)."""
+    if _variant_id(variant, BWD_VARIANTS) == VARIANT_IDS["nograd"]:
+        T, K, _ = tile_quad.shape
+        return (torch.zeros(T, K, 8, device=tile_quad.device),
+                torch.zeros(T, K, 4, device=tile_quad.device))
+    return composite_tiles_bwd_variant_plain_with_stats(
+        variant, tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accum, tfinal, tile_shape,
+        tile_origins)[:2]
+
+
+def composite_tiles_fwd_variant(variant: str, tile_quad, tile_color, tile_counts, tile_shape,
+                                tile_origins) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``composite_tiles_fwd`` with origins (global conic rows) under the
+    stage probe ``variant`` (one of FWD_VARIANTS). ``base`` is kernel 5
+    itself, launched and counted as ``composite_tiles_fwd``. Replaces the
+    Pallas kernel of tools/kvariants.py:build_fwd."""
+    vid = _variant_id(variant, FWD_VARIANTS)
+    if _on_cpu(tile_quad):
+        return composite_tiles_fwd_variant_plain(variant, tile_quad, tile_color, tile_counts,
+                                                 tile_shape, tile_origins)
+    if tile_origins is None:
+        raise ValueError("the stage probes take global conic rows and tile_origins")
+    if variant == "base":
+        return composite_tiles_fwd(tile_quad, tile_color, tile_counts, tile_shape, tile_origins)
+    return _fwd_rm(composite_tiles_fwd_variant, tile_quad, tile_color, tile_counts, tile_shape,
+                   tile_origins, vid)
+
+
+composite_tiles_fwd_variant.launches = 0
+
+
+def composite_tiles_bwd_variant(variant: str, tile_quad, tile_color, tile_counts, g_accum,
+                                g_tfinal, accum, tfinal, tile_shape,
+                                tile_origins) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``composite_tiles_bwd`` with origins under the stage probe ``variant``
+    (one of BWD_VARIANTS). ``base`` is kernel 6 itself, launched and
+    counted as ``composite_tiles_bwd``. Replaces the Pallas kernel of
+    tools/kvariants.py:build_bwd."""
+    vid = _variant_id(variant, BWD_VARIANTS)
+    if _on_cpu(tile_quad):
+        return composite_tiles_bwd_variant_plain(variant, tile_quad, tile_color, tile_counts,
+                                                 g_accum, g_tfinal, accum, tfinal, tile_shape,
+                                                 tile_origins)
+    if tile_origins is None:
+        raise ValueError("the stage probes take global conic rows and tile_origins")
+    if variant == "base":
+        return composite_tiles_bwd(tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accum,
+                                   tfinal, tile_shape, tile_origins)
+    return _bwd_rm(composite_tiles_bwd_variant, tile_quad, tile_color, tile_counts, g_accum,
+                   g_tfinal, accum, tfinal, tile_shape, tile_origins, vid)
+
+
+composite_tiles_bwd_variant.launches = 0
+
+
+# --------------------------------------------------------------------------
+# per-tile windows (csrc/windows.cu; replaces tools/win_probe.py:windows_dma)
+# --------------------------------------------------------------------------
+
+
+def tile_windows_plain(starts, rank_pad, K: int, n: int) -> torch.Tensor:
+    """Plain version of ``tile_windows``: binning's own gather."""
+    from .binning import _windows
+
+    starts = starts.long()
+    return _windows(rank_pad, starts, starts[1:] - starts[:-1], n, K)
+
+
+def _lib_windows() -> ctypes.CDLL:
+    lib = cuda_build.load("windows")
+    lib.tile_windows.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+    lib.tile_windows.restype = _I
+    return lib
+
+
+def tile_windows(starts, rank_pad, K: int, n: int) -> torch.Tensor:
+    """(T, K) int32 windows out[t, k] = rank_pad[starts[t] + k] for k below
+    the tile's count starts[t + 1] - starts[t], else n. starts (T + 1,) i32
+    non-decreasing, rank_pad (L,) i32 with L >= starts[T] (no padding is
+    read). The binnings build their windows with ``binning._windows``, as the
+    JAX package's do with a gather: only the probe tool and chip_smoke.py
+    launch this kernel."""
+    if _on_cpu(starts):
+        return tile_windows_plain(starts, rank_pad, K, n)
+    T = starts.shape[0] - 1
+    dev = starts.device
+    _check("starts", starts, torch.int32, (T + 1,), dev)
+    _check("rank_pad", rank_pad, torch.int32, (rank_pad.shape[0],), dev)
+    out = torch.empty(T, K, dtype=torch.int32, device=dev)
+    if T == 0 or K == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = _lib_windows().tile_windows(starts.data_ptr(), rank_pad.data_ptr(), out.data_ptr(), T,
+                                         K, n, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "tile_windows")
+    tile_windows.launches += 1
+    return out
+
+
+tile_windows.launches = 0
+
 # every kernel wrapper of this module, for callers that reset or read the
 # launch counts
 KERNELS = (composite_tiles_fwd_cm, composite_tiles_bwd_cm, composite_tiles_fwd_v2,
            composite_tiles_bwd_v2, composite_tiles_fwd, composite_tiles_bwd,
-           composite_pairs_fwd_rg, composite_pairs_bwd_rg)
+           composite_pairs_fwd_rg, composite_pairs_bwd_rg, composite_tiles_fwd_variant,
+           composite_tiles_bwd_variant, tile_windows)

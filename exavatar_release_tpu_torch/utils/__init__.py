@@ -1,0 +1,4 @@
+"""Logging, timing, image and video output for the apps."""
+from .logging import Timer, make_logger
+
+__all__ = ["Timer", "make_logger"]

@@ -1,7 +1,9 @@
-"""The port's CUDA compositing kernels on the card, forward and backward,
-channel-major, pair-major and row-major: each against its plain PyTorch version on the same CUDA tensors, the
-wrappers' input checks, their launch counters, a render's gradients against
-the same render on CPU tensors, and a failed build. Marked ``cuda``; skips
+"""The port's CUDA kernels on the card: the compositing kernels forward and
+backward, channel-major, pair-major and row-major, the stage variants of the
+row-major ones and the window build, each against its plain PyTorch version
+on the same CUDA tensors; the wrappers' input checks, their launch counters,
+a render's gradients against the same render on CPU tensors, and a failed
+build. Marked ``cuda``; skips
 where there is no GPU.
 
 This file imports neither JAX nor the JAX package, so that it runs on a
@@ -365,3 +367,105 @@ def test_failed_build_raises(dev, tmp_path, monkeypatch):
     monkeypatch.setitem(cuda_build.LIBRARIES, "broken", (str(bad),))
     with pytest.raises(RuntimeError, match="nvcc failed"):
         cuda_build.load("broken")
+
+
+# --------------------------------------------------------------------------
+# the probe kernels: stage variants of kernels 5 and 6, the window build
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def probe_rows(scene):
+    """The scene's windows as global conic rows with origins, opaque enough
+    that pixels end inside the first 256-row batch, and the base forward."""
+    s = scene
+    quad = s["win"][:, :8].transpose(1, 2).contiguous()
+    quad[..., 5] = torch.where(quad[..., 5] > -1e8, quad[..., 5] * 0.25, quad[..., 5])
+    color = s["win"][:, 8:].transpose(1, 2).contiguous()
+    g = torch.Generator().manual_seed(9)
+    P = TILE[0] * TILE[1]
+    cot = (torch.randn(16, P, 4, generator=g).to(quad.device),
+           torch.randn(16, P, 1, generator=g).to(quad.device))
+    fwd = kn.composite_tiles_fwd(quad, color, s["counts"], TILE, s["origins"])
+    return dict(quad=quad, color=color, counts=s["counts"], origins=s["origins"], cot=cot,
+                fwd=fwd)
+
+
+def _rows_err(got, want):
+    """Worst ratio over the used rows (lanes 0-5 of dquad, 0-3 of dcolor) of
+    max |got - want| to the row's own max |want|."""
+    worst = 0.0
+    for g, w, lanes in ((got[0], want[0], range(6)), (got[1], want[1], range(4))):
+        for c in lanes:
+            scale = float(w[..., c].abs().max())
+            err = float((g[..., c] - w[..., c]).abs().max())
+            worst = max(worst, err / scale if scale > 0 else (0.0 if err == 0 else np.inf))
+    return worst
+
+
+@pytest.mark.parametrize("variant", kn.FWD_VARIANTS)
+def test_fwd_variant_equals_plain(probe_rows, variant):
+    r = probe_rows
+    args = (r["quad"], r["color"], r["counts"], TILE, r["origins"])
+    # base is kernel 5 itself and counts as such
+    counted = kn.composite_tiles_fwd if variant == "base" else kn.composite_tiles_fwd_variant
+    before = counted.launches
+    got = kn.composite_tiles_fwd_variant(variant, *args)
+    want = kn.composite_tiles_fwd_variant_plain(variant, *args)
+    torch.cuda.synchronize()
+    assert counted.launches == before + 1
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    if variant == "base":
+        assert all(torch.equal(g, w) for g, w in zip(got, r["fwd"]))
+        # the probes' entry point at variant 0 launches the same kernel
+        direct = kn._fwd_rm(kn.composite_tiles_fwd_variant, *args, kn.VARIANT_IDS["base"])
+        assert all(torch.equal(g, w) for g, w in zip(direct, r["fwd"]))
+    if variant in kn.EXACT_VARIANTS:
+        for g, w in zip(got, r["fwd"]):
+            assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("variant", kn.BWD_VARIANTS)
+def test_bwd_variant_equals_plain(probe_rows, variant):
+    r = probe_rows
+    args = (r["quad"], r["color"], r["counts"], *r["cot"], *r["fwd"], TILE, r["origins"])
+    got = kn.composite_tiles_bwd_variant(variant, *args)
+    want = kn.composite_tiles_bwd_variant_plain(variant, *args)
+    torch.cuda.synchronize()
+    assert not got[0][..., 6:].any()
+    if variant == "nograd":
+        assert not got[0].any() and not got[1].any()
+        return
+    assert _rows_err(got, want) <= 1e-4
+    if variant == "base" or variant in kn.EXACT_VARIANTS:
+        b6 = kn.composite_tiles_bwd(r["quad"], r["color"], r["counts"], *r["cot"], *r["fwd"],
+                                    TILE, r["origins"])
+        assert _rows_err(got, b6) <= (1e-6 if variant == "base" else 1e-4)
+
+
+def test_variant_checks(probe_rows):
+    r = probe_rows
+    with pytest.raises(ValueError):
+        kn.composite_tiles_fwd_variant("nograd", r["quad"], r["color"], r["counts"], TILE,
+                                       r["origins"])
+    with pytest.raises(ValueError):
+        kn.composite_tiles_fwd_variant("base", r["quad"], r["color"], r["counts"], TILE, None)
+
+
+def test_tile_windows_equals_gather(dev):
+    rng = np.random.default_rng(12)
+    n, T, K, Pm = 5000, 300, 512, 90_000
+    starts = np.sort(rng.integers(0, Pm, T + 1)).astype(np.int32)
+    starts[0], starts[-1] = 0, Pm
+    starts[7] = starts[8]
+    rank = torch.from_numpy(rng.integers(0, n, Pm).astype(np.int32)).to(dev)
+    st = torch.from_numpy(starts).to(dev)
+    before = kn.tile_windows.launches
+    got = kn.tile_windows(st, rank, K, n)
+    torch.cuda.synchronize()
+    assert kn.tile_windows.launches == before + 1
+    assert torch.equal(got, kn.tile_windows_plain(st, rank, K, n))
+    assert (got[7] == n).all()
+    with pytest.raises(TypeError):
+        kn.tile_windows(st.long(), rank, K, n)

@@ -1,6 +1,7 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package, and no module of it (nor chip_smoke.py, nor kernel_ab.py) imports
-them."""
+package (nor cv2, which the machine with the card lacks), and no module of
+it (nor chip_smoke.py, nor kernel_ab.py) imports them or the JAX
+repository's tools/."""
 import ast
 import glob
 import os.path as osp
@@ -8,7 +9,7 @@ import subprocess
 import sys
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "exavatar_release_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "exavatar_release_tpu", "tools")
 
 
 def _port_files():
@@ -53,6 +54,29 @@ def test_module_list_covers_the_train_modules():
     assert not missing, missing
 
 
+# the probe tools and the apps slice
+APPS_MODULES = ("tools.kvariants", "tools.win_probe", "data.colmap", "data.subject",
+                "native.loader", "utils.logging", "utils.png", "utils.vis", "apps.common",
+                "apps.train", "apps.test", "apps.evaluate", "apps.animate")
+
+
+def test_module_list_covers_the_apps_modules():
+    mods = _port_modules()
+    missing = [m for m in APPS_MODULES if m not in mods]
+    assert not missing, missing
+
+
+def test_each_apps_module_imports_alone_without_jax_or_cv2():
+    code = (
+        "import sys, importlib\n"
+        "importlib.import_module('exavatar_release_tpu_torch.' + sys.argv[1])\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r + ('cv2',)]\n"
+        "assert not bad, bad\n" % (FORBIDDEN,)
+    )
+    for m in APPS_MODULES:
+        subprocess.run([sys.executable, "-c", code, m], cwd=REPO, check=True, timeout=120)
+
+
 def test_each_train_module_imports_alone_without_jax():
     """Every new module in a clean process of its own: importing it first
     (before any other module of the port) must work and load no JAX."""
@@ -90,8 +114,7 @@ def test_import_leaves_jax_unloaded():
         "import importlib\n"
         "for m in %r:\n"
         "    importlib.import_module('exavatar_release_tpu_torch.' + m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
-        "assert not bad, bad\n"
-        "assert 'triton' not in sys.modules\n" % (_port_modules(), FORBIDDEN)
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r + ('cv2', 'triton')]\n"
+        "assert not bad, bad\n" % (_port_modules(), FORBIDDEN)
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
