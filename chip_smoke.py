@@ -12,7 +12,10 @@ the JAX package) and fails with a non-zero exit when any phase fails:
    against its plain PyTorch version on the card, on seeded random windows at
    the 1080p tiling (random cotangents for the backward; each of its ten used
    rows against that row's own largest value), and the forward kernels
-   against each other on the same scene;
+   against each other on the same scene; for the pair-major kernels (7 and
+   8) it prints, here, at the animate frame and at the train render, what
+   their per-warp row cull leaves (``pair_cull_stats``, a model of it), and after
+   the build their registers, shared memory and spills;
 3. renders the golden scenes of ``tests/goldens`` through the dense and the
    pair-major path and compares outputs and input gradients with the
    frozen reference and with the same render on CPU tensors;
@@ -60,6 +63,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -323,6 +327,142 @@ def ragged_from_windows(win, counts, chunk: int):
     return rows, tid.int(), flags.int()
 
 
+def ptxas_resources(lib: str, entry: str) -> dict:
+    """{the groups of ``entry`` in a kernel's mangled name: (registers, shared
+    bytes, spill stores, spill loads)}, from ptxas's report in the build log
+    of library ``lib`` (empty off the card)."""
+    import re
+
+    from exavatar_release_tpu_torch import cuda_build
+
+    try:
+        text = cuda_build.build_log(lib)
+    except OSError:
+        return {}
+    out, cur, spill = {}, None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"entry function '\S*" + entry, line)
+        if m:
+            cur, spill = m.groups(), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and cur is not None:
+            out[cur] = (int(m.group(1)), int(m.group(2))) + spill
+            cur = None
+    return out
+
+
+def pairs_resources() -> dict:
+    """{kernel: (registers, shared bytes, spill stores, spill loads)} of
+    kernels 7 and 8."""
+    out = {}
+    for lib in ("composite", "composite_bwd"):
+        for (name,), r in ptxas_resources(lib, r"(composite_pairs_(?:fwd|bwd)_rg)_kernel").items():
+            out[name] = r
+    return out
+
+
+# composite_common.cuh's pair-major layout: kPairsR pixels a thread (a
+# column), kLanesW x kLanesH lanes a warp, kWarps warps a block
+PAIRS_R, LANES_W, LANES_H, PAIR_WARPS = 2, 8, 4, 8
+
+
+class PairLayout(NamedTuple):
+    """Where kernels 7 and 8 put each pixel of a th x tw tile
+    (composite_common.cuh ``pair_pixels``). Per tile-local pixel i (P,):
+    ``patch``, its warp's patch (block * PAIR_WARPS + warp of the block),
+    ``lane`` and ``slot`` (0..PAIRS_R-1 within the thread's column);
+    ``bounds`` (npatch, 4) each patch's tile-local [x0, x1, y0, y1], first and
+    last pixel, padding past the tile included."""
+
+    patch: object
+    lane: object
+    slot: object
+    bounds: object
+
+
+def pair_layout(tile_shape, device=None) -> PairLayout:
+    import torch
+
+    th, tw = tile_shape
+    pw, ph = LANES_W, LANES_H * PAIRS_R
+    npx, npy = -(-tw // pw), -(-th // ph)
+    i = torch.arange(th * tw, device=device)
+    x, y = i % tw, i // tw
+    patch = (y // ph) * npx + x // pw
+    lane = ((y % ph) // PAIRS_R) * LANES_W + x % pw
+    p = torch.arange(npx * npy, device=device)
+    x0, y0 = (p % npx) * pw, (p // npx) * ph
+    bounds = torch.stack([x0, x0 + pw - 1, y0, y0 + ph - 1], dim=1)
+    return PairLayout(patch, lane, y % PAIRS_R, bounds)
+
+
+def patch_misses(box, bounds, origins):
+    """composite_common.cuh ``misses``: boxes (4, T, K) of each tile's rows
+    against the patches' tile-local ``bounds`` (npatch, 4) placed at the tiles'
+    ``origins`` (T, 2) -> (T, npatch, K), True where the warp skips the row."""
+    b = bounds.to(origins.dtype)
+    x0, x1 = (b[None, :, c] + origins[:, 0:1] for c in (0, 1))
+    y0, y1 = (b[None, :, c] + origins[:, 1:2] for c in (2, 3))
+    xmin, xmax, ymin, ymax = (v[:, None, :] for v in box)
+    return ((xmax < x0[..., None]) | (xmin > x1[..., None]) | (ymax < y0[..., None])
+            | (ymin > y1[..., None]))
+
+
+class CullStats(NamedTuple):
+    """What the per-warp row cull of kernels 7 and 8 leaves to do."""
+
+    visits: int  # (pixel, row) visits of the plain version, trigger included
+    visits_left: int  # of those, the ones whose row the pixel's warp does not cull
+    warp_rows: int  # (warp, row) pairs the warps reach before their pixels end
+    warp_rows_culled: int  # of those, the ones the warp culls
+
+
+def pair_cull_stats(win, counts, origins, tile_shape, visits,
+                    tiles_per_step: int = 32) -> CullStats:
+    """The cull's effect on dense windows (T, 12, K), from the plain
+    version's visits (T, P) per pixel (``kernels.composite_plain_with_visits``):
+    a pixel evaluates rows k < visits, and a warp reaches rows below the
+    largest visits of its patch. A model of the kernels' schedule from
+    ``kernels.row_pixel_box``; the kernels count nothing themselves."""
+    import torch
+
+    from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
+
+    T, _, K = win.shape
+    lay = pair_layout(tile_shape, win.device)
+    npatch = lay.bounds.shape[0]
+    n = torch.clamp(counts.long(), max=K)
+    total = torch.zeros(4, dtype=torch.int64, device=win.device)
+    for t0 in range(0, T, tiles_per_step):
+        sl = slice(t0, min(T, t0 + tiles_per_step))
+        miss = patch_misses(kn.row_pixel_box(win[sl].permute(1, 0, 2)), lay.bounds, origins[sl])
+        live = torch.arange(K, device=win.device)[None, None, :] < n[sl, None, None]
+        zero = torch.zeros(miss.shape[0], npatch, 1, dtype=torch.int64, device=win.device)
+        keep = torch.cat([zero, torch.cumsum(~miss & live, 2)], 2)  # rows kept below k
+        cull = torch.cat([zero, torch.cumsum(miss & live, 2)], 2)
+        vis = visits[sl].long()
+        reach = torch.zeros(vis.shape[0], npatch, dtype=torch.int64, device=win.device)
+        reach.scatter_reduce_(1, lay.patch[None].expand_as(vis), vis, "amax")
+        left = keep.flatten(1).gather(1, lay.patch[None] * (K + 1) + vis)
+        total += torch.stack([vis.sum(), left.sum(), reach.sum(),
+                              cull.gather(2, reach[..., None]).sum()])
+    return CullStats(*(int(v) for v in total))
+
+
+def pair_cull(tag: str, win, counts, origins, tile_shape, visits) -> None:
+    """Logs what the per-warp row cull of kernels 7 and 8 leaves of a scene
+    (its dense windows and the plain version's visits per pixel)."""
+    st = pair_cull_stats(win, counts, origins, tile_shape, visits)
+    log(f"[{tag}] pair-major cull: plain visits {st.visits}, left after the cull "
+        f"{st.visits_left} ({st.visits_left / max(1, st.visits):.4f}); (warp, row) pairs "
+        f"reached {st.warp_rows}, culled {st.warp_rows_culled} "
+        f"({st.warp_rows_culled / max(1, st.warp_rows):.4f})")
+
+
 def phase_kernels_random(device, T=510, K=1024, tile_shape=(32, 128), nx=15,
                          chunk=256) -> dict:
     """K1 and K2 against their plain versions, and against each other, on
@@ -371,6 +511,7 @@ def phase_kernels_random(device, T=510, K=1024, tile_shape=(32, 128), nx=15,
     for k in BWD_KERNELS:
         log_grad_rows("kernels/random", k, res[k])
     log(f"[kernels/random] backward: zeros where no row lives: {zeros_ok}")
+    pair_cull("kernels/random", win, counts, origins, (th, tw), visits)
     res["ok"] = zeros_ok and all(within(res[k], TOL) for k in
                                  ("composite_tiles_fwd_cm", "composite_pairs_fwd_rg", "k1_vs_k2"))
     res["ok"] &= all(res[k]["ok"] for k in BWD_KERNELS)
@@ -648,6 +789,7 @@ def phase_animate(device, img=(1080, 1920), focal=1200.0, dense_k=16384, timing_
         log(f"[animate] frame 0: live pairs {live_rows}, pixel-Gaussian visits {n_visits}, "
             f"Pa {inr.rows.shape[1]}, bound {bound_ms:.6f} ms by {bound_by} "
             f"(ops {1e3 * ops_s:.6f} ms, bytes {1e3 * bytes_s:.6f} ms)")
+        pair_cull("animate", ind.rows, b.tile_counts, ind.origins, ind.tile_shape, visits)
 
         stats = {}
         if device == "cuda":
@@ -964,6 +1106,10 @@ def phase_frame(device, timing_iters=2, **setup_kw) -> dict:
         log_grad_rows("frame", f"{k} (scene+human render)", e)
     check("dense vs pair-major forward", float((full_d - full_r).abs().max()) <= 1e-6,
           f"max abs diff {float((full_d - full_r).abs().max())}")
+    _, visits = kn.composite_plain_with_visits(ind.rows, bd.tile_counts, ind.origins, ones,
+                                               ind.tile_shape)
+    pair_cull("frame", ind.rows, bd.tile_counts, ind.origins, ind.tile_shape, visits)
+    del visits
 
     # bound of the backward: operations of the replay against the bytes
     live_rows = int(torch.clamp(bd.tile_counts.long(), max=ind.rows.shape[2]).sum())
@@ -1411,27 +1557,9 @@ def phase_train(device, steps=4, timing_iters=2, grow_to=1 << 16, start_kw=None,
 
 def rm_resources() -> dict:
     """{(fwd|bwd, variant id): (registers, shared bytes)} of the LOCALIZE
-    instantiations of csrc/composite_rm.cu's two kernel templates, from
-    ptxas's report in the build log (empty off the card)."""
-    import re
-
-    from exavatar_release_tpu_torch import cuda_build
-
-    try:
-        text = cuda_build.build_log("composite_rm")
-    except OSError:
-        return {}
-    out, cur = {}, None
-    for line in text.splitlines():
-        m = re.search(r"entry function '\S*composite_rm_(fwd|bwd)_kernelILb1ELi(\d+)E", line)
-        if m:
-            cur = (m.group(1), int(m.group(2)))
-            continue
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
-        if m and cur is not None:
-            out[cur] = (int(m.group(1)), int(m.group(2)))
-            cur = None
-    return out
+    instantiations of csrc/composite_rm.cu's two kernel templates."""
+    found = ptxas_resources("composite_rm", r"composite_rm_(fwd|bwd)_kernelILb1ELi(\d+)E")
+    return {(d, int(v)): r[:2] for (d, v), r in found.items()}
 
 
 def windows_on_binning(screen, img, tile_shape, K, binning, max_pairs):
@@ -1839,6 +1967,9 @@ def main() -> int:
         for line in cuda_build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {lib}: {line.strip()}")
+    for k, (regs, smem, st, ld) in pairs_resources().items():
+        log(f"[build] {k}: {regs} registers, {smem} bytes shared memory, spills {st} B stored / "
+            f"{ld} B loaded")
 
     # ``--phases a,b`` runs a part (random, goldens, animate, frame, train,
     # probes, apps) and
@@ -1867,6 +1998,7 @@ def main() -> int:
         return 0 if ok else 1
 
     kernels = []
+    pairs = pairs_resources()
     for name in ALL_KERNELS:
         fwd = name in FWD_KERNELS + RM_FWD_KERNELS
         # channel-major and pair-major forward kernels: measured on the animate
@@ -1903,6 +2035,8 @@ def main() -> int:
             if not fwd:  # the figure the backward kernels are held to (GRAD_TOL)
                 entry["max_row_rel_err"] = max(st["max_row_rel_err"],
                                                rnd[name]["max_row_rel_err"])
+        if name in pairs:  # kernels 7 and 8, from this run's build log
+            entry["registers_smem_spills"] = pairs[name]
         kernels.append(entry)
     if not ok:
         print("chip_smoke: FAILED (see the lines above)", file=sys.stderr)

@@ -1,5 +1,5 @@
 // Tile compositing kernels for Hopper (sm_90a): the forward of the 3DGS
-// rasterizer's front-to-back alpha blend, one thread per pixel.
+// rasterizer's front-to-back alpha blend.
 //
 // Replaces two Pallas TPU kernels of
 // exavatar_release_tpu/ops/rasterizer/pallas_kernels.py:
@@ -14,11 +14,6 @@
 // T is a sequential f32 product, as in the plain PyTorch twin
 // (ops/rasterizer/kernels.py). The TPU kernels' log-space triangular-matmul
 // prefix was a device for the TPU's matrix unit and is not carried over.
-//
-// Design (renderCUDA's): a block owns 256 pixels of one tile. It stages 256
-// rows at a time in shared memory (10 used channels x 256 floats = 10 KB),
-// each channel a coalesced load, and every thread walks the batch in depth
-// order. __syncthreads_count ends the block once all its pixels are done.
 // The TPU kernel carried acc/T/done across sequential grid steps over chunk
 // slots (the ragged kernel's output-block revisit); blocks here run in no
 // order, so that carry is the loop over the tile's slot range inside one
@@ -27,9 +22,30 @@
 // Bound: the work is ~13 f32 operations (one exp) per (pixel, Gaussian)
 // visit before termination, against 40 bytes per live row and 20 per output
 // pixel, so on this card the kernels are bound by operations (PERF.md holds
-// the bound and the measured times at the avatar's shapes). The design
-// keeps rows in shared memory and state in registers: device memory sees
-// each live row once per 256-pixel block and each output once.
+// the bound and the measured times at the avatar's shapes).
+//
+// composite_tiles_fwd_cm (renderCUDA's design): a block owns 256 pixels of
+// one tile, one thread per pixel. It stages 256 rows at a time in shared
+// memory (10 used channels x 256 floats = 10 KB), each channel a coalesced
+// load, and every thread walks the batch in depth order.
+// __syncthreads_count ends the block once all its pixels are done.
+//
+// composite_pairs_fwd_rg cuts the per-visit cost that is not the blend's
+// arithmetic: shared-memory reads, exps of Gaussians that are skipped, and
+// visits of Gaussians far from the pixels.
+// - A thread owns R = kPairsR = 2 pixels (a column of two), and a warp a
+//   compact patch (8 x 8 pixels): a block covers 512 pixels, so each row is
+//   staged 8 times per 32 x 128 tile, not 16 times. A visit reads the row
+//   from shared memory once for both pixels (three broadcast vector loads),
+//   and the two pixels' chains are independent.
+// - Each staged row carries a conservative pixel box (composite_common.cuh
+//   pixel_box); a warp whose patch misses it skips the row with one
+//   warp-uniform test, before any exp. This is exact: every pixel of the
+//   patch would skip that row.
+// - The exp gate (reaches_gated): q < kQGate skips without an expf (at the
+//   avatar's train render about 70% of the visits contribute nothing).
+// Each pixel keeps its own sticky termination; a thread leaves the batch
+// when both its pixels are done, the block when all are.
 //
 // The thresholds, the row staging and the blend of one Gaussian at one pixel
 // are in composite_common.cuh, which the backward kernels share. Build with
@@ -99,16 +115,93 @@ composite_tiles_fwd_cm_kernel(const float* __restrict__ win, const int* __restri
                   origins[2 * t + 1], th, tw, bg, out + (long long)t * 5 * th * tw);
 }
 
-__global__ void __launch_bounds__(kBlock)
+// Composite rows [begin, begin + n) of a channel-major row table into the
+// pixels of one tile, kPairsR pixels a thread (pair_pixels, blk the block's
+// index within the tile).
+__device__ void composite_pairs_range(const float* __restrict__ rows, long long stride, int blk,
+                                      long long begin, int n, float ox, float oy, int th,
+                                      int tw, const float* __restrict__ bg,
+                                      float* __restrict__ out_tile) {
+  constexpr int R = kPairsR;
+  __shared__ PairRows s;
+  const int P = th * tw;
+  const PairPixels pp = pair_pixels(blk, tw, ox, oy);
+  const float px = (float)pp.x + ox;
+  float py[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) py[r] = (float)(pp.y + r) + oy;
+
+  bool done[R];
+  float T[R], c0[R], c1[R], c2[R], c3[R];
+  bool all_done = true;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    done[r] = pp.x >= tw || pp.y + r >= th;
+    all_done = all_done && done[r];
+    T[r] = 1.0f;
+    c0[r] = c1[r] = c2[r] = c3[r] = 0.0f;
+  }
+  for (int b = 0; b < n; b += kBlock) {
+    // barrier before overwriting the batch; also the block's exit test
+    if (__syncthreads_count(all_done) == kBlock) break;
+    stage_pair_row(s, rows, stride, begin, b + threadIdx.x, n);
+    __syncthreads();
+    const int m = min(kBlock, n - b);
+    for (int j = 0; !all_done && j < m; ++j) {
+      if (misses(s.box[j], pp.patch)) continue;
+      const float4 g = s.abcx[j];
+      const float2 h = s.ylo[j];
+      const float4 col = s.col[j];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (done[r]) continue;
+        float dx, dy, alpha_un;
+        if (!reaches_gated(g.x, g.y, g.z, g.w, h.x, h.y, px, py[r], dx, dy, alpha_un))
+          continue;
+        const float alpha = clamped(alpha_un);
+        const float test_T = T[r] * (1.0f - alpha);
+        if (ends_pixel(test_T)) {
+          done[r] = true;
+          continue;
+        }
+        const float w = alpha * T[r];
+        c0[r] = c0[r] + w * col.x;
+        c1[r] = c1[r] + w * col.y;
+        c2[r] = c2[r] + w * col.z;
+        c3[r] = c3[r] + w * col.w;
+        T[r] = test_T;
+      }
+      all_done = true;
+#pragma unroll
+      for (int r = 0; r < R; ++r) all_done = all_done && done[r];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int x = pp.x, y = pp.y + r;
+    if (x >= tw || y >= th) continue;
+    const int i = y * tw + x;
+    out_tile[0 * P + i] = c0[r] + T[r] * bg[0];
+    out_tile[1 * P + i] = c1[r] + T[r] * bg[1];
+    out_tile[2 * P + i] = c2[r] + T[r] * bg[2];
+    out_tile[3 * P + i] = c3[r];
+    out_tile[4 * P + i] = 1.0f - T[r];
+  }
+}
+
+__global__ void __launch_bounds__(kBlock, 2)
 composite_pairs_fwd_rg_kernel(const float* __restrict__ rows, const int* __restrict__ slot_start,
                               const int* __restrict__ slot_count, const float* __restrict__ bg,
                               float oy_off, float* __restrict__ out, long long Pa, int chunk,
                               int th, int tw, int nx) {
-  const int t = blockIdx.x;
+  const int nb = pair_blocks(th, tw);
+  const int t = blockIdx.x / nb;
+  const int blk = blockIdx.x - t * nb;
   const float ox = (float)((t % nx) * tw);
   const float oy = (float)((t / nx) * th) + oy_off;
-  composite_range(rows, Pa, (long long)slot_start[t] * chunk, slot_count[t] * chunk, ox, oy,
-                  th, tw, bg, out + (long long)t * 5 * th * tw);
+  composite_pairs_range(rows, Pa, blk, (long long)slot_start[t] * chunk,
+                        slot_count[t] * chunk, ox, oy, th, tw, bg,
+                        out + (long long)t * 5 * th * tw);
 }
 
 }  // namespace
@@ -131,7 +224,7 @@ int composite_tiles_fwd_cm(const float* win, const int* counts, const float* ori
 int composite_pairs_fwd_rg(const float* rows, const int* slot_start, const int* slot_count,
                            const float* bg, float oy_off, float* out, int T, long long Pa,
                            int chunk, int th, int tw, int nx, void* stream) {
-  const dim3 grid(T, (th * tw + kBlock - 1) / kBlock);
+  const dim3 grid(T * pair_blocks(th, tw));
   composite_pairs_fwd_rg_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       rows, slot_start, slot_count, bg, oy_off, out, Pa, chunk, th, tw, nx);
   return (int)cudaGetLastError();

@@ -41,6 +41,7 @@ and for the row-major kernels:
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -367,6 +368,57 @@ def composite_pairs_bwd_rg_plain(rows, tid, flags, bg, oy_off: float, full, g_fu
     drows = torch.zeros_like(rows)
     drows[:, idx[inside]] = dwin.permute(1, 0, 2)[:, inside]
     return drows
+
+
+# --------------------------------------------------------------------------
+# the pair-major kernels' cull and exp gate, in Python for the tests and
+# chip_smoke.py (no kernel path calls these)
+# --------------------------------------------------------------------------
+
+# composite_common.cuh's kQGate: q below it skips without an exp, since
+# exp(Q_GATE) < 1/255 in float32
+Q_GATE = -5.55
+# pixel_box's constants, as composite_common.cuh rounds them to float32
+BOX_LN255 = 5.5413  # above ln 255 = 5.541264
+BOX_MAX_K = 1e5
+BOX_SLACK_K = 1e-5
+BOX_SLACK_ABS = 1e-5
+BOX_REL = 1.0 + 1.0 / 1024.0
+BOX_PAD = 1.0
+
+
+def row_pixel_box(rows: torch.Tensor) -> torch.Tensor:
+    """The conservative pixel box of each row that composite_common.cuh's
+    ``pixel_box`` stages beside it, operation for operation in float32: rows
+    (12, ...) channel-major -> (4, ...) [xmin, xmax, ymin, ymax] in global
+    pixel coordinates.
+
+    A pixel composites a row only where alpha = exp(q) >= 1/255, i.e. where
+    0.5 d^T Q d <= L = log_op + ln 255 with Q = [[A, B], [B, C]] and d the
+    pixel's offset from (gx, gy). For Q positive definite that is an ellipse
+    of half-extents sqrt(2 L Sxx) and sqrt(2 L Syy), where S = Q^-1: Sxx = C /
+    det, Syy = A / det, det = AC - B^2 (the ellipse preprocess.py bins on).
+    The kernel's q is float32: its error is a few ulps of |log_op| + A dx^2 +
+    C dy^2 + |B dx dy|, and at the ellipse's edge those terms reach about 2 L
+    k, k = AC / det = 1 / (1 - rho^2). So L is widened to L (1 + 1e-5 k) +
+    1e-5 (1 + |log_op|), the extents by 1/1024 and one pixel; ln 255 is
+    taken as 5.5413, above the float32 threshold's own logarithm. The box is
+    empty (xmin > xmax) when L < 0, which includes the -1e9 padding rows, and
+    the whole plane (infinite) when det <= 0, k >= 1e5 (the float32 det is
+    then too inexact to trust) or an extent is not finite: there the kernel's
+    per-pixel test decides alone."""
+    A, B, C, gx, gy, log_op = (rows[c].float() for c in range(6))
+    inf = torch.full_like(A, math.inf)
+    L = log_op + BOX_LN255
+    det = A * C - B * B
+    k = (A * C) / det
+    Lb = L * (1.0 + BOX_SLACK_K * k) + BOX_SLACK_ABS * (1.0 + log_op.abs())
+    ex = torch.sqrt(2.0 * Lb * (C / det)) * BOX_REL + BOX_PAD
+    ey = torch.sqrt(2.0 * Lb * (A / det)) * BOX_REL + BOX_PAD
+    box = torch.stack([gx - ex, gx + ex, gy - ey, gy + ey])
+    whole = ~(det > 0) | ~(k < BOX_MAX_K) | ~torch.isfinite(ex) | ~torch.isfinite(ey)
+    box = torch.where(whole, torch.stack([-inf, inf, -inf, inf]), box)
+    return torch.where(L < 0, torch.stack([inf, -inf, inf, -inf]), box)
 
 
 def bwd_row_errors(got: torch.Tensor, want: torch.Tensor,

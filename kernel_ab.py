@@ -15,14 +15,63 @@ row-major kernels get the same windows repacked (``composite_tiles_fwd_v2`` /
 ``_bwd_v2`` the packed tile-local coefficients, ``composite_tiles_fwd`` /
 ``_bwd`` the global rows with origins) and random cotangents of ``accum`` and
 ``tfinal``. A checkout from before the row-major kernels times the four it has.
+
+    python3 kernel_ab.py --sass ROOT_A ROOT_B
+
+compares, kernel by kernel, the SASS (``cuobjdump -sass``, addresses and
+encodings dropped) of the default builds of two checkouts (built where
+missing) and prints one JSON line: the kernels whose instructions are the
+same, those that differ, and those that only one build has.
 """
 import json
 import os
+import re
+import subprocess
 import sys
 
 
+def _sass(lib: str) -> dict:
+    """{kernel: [instructions]} of a built library."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            # an anonymous namespace's name carries hashes of its translation unit
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "_ZN_anon_",
+                          m.group(1))
+            cur = out.setdefault(name, [])
+            continue
+        ins = re.sub(r"/\*[^*]*\*/", "", line).strip()
+        if cur is not None and ins and not ins.startswith(".") and ins != "}":
+            cur.append(ins)
+    return out
+
+
+def compare_sass(root_a: str, root_b: str) -> dict:
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "from exavatar_release_tpu_torch import cuda_build as b; "
+            "print(json.dumps(b.build()))")
+    libs = [json.loads(subprocess.run([sys.executable, "-c", code, r], capture_output=True,
+                                      text=True, check=True).stdout) for r in (root_a, root_b)]
+    res = {"same": [], "differ": [], "only_one": []}
+    for name in libs[0]:
+        a, b = (_sass(lib[name]) if name in lib else {} for lib in libs)
+        for fn in sorted(set(a) | set(b)):
+            key = "only_one" if (fn in a) != (fn in b) else ("same" if a[fn] == b[fn]
+                                                               else "differ")
+            res[key].append(f"{name}:{fn}")
+    return res
+
+
 def main() -> int:
-    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else os.path.dirname(__file__))
+    args = sys.argv[1:]
+    if args[:1] == ["--sass"]:
+        print(json.dumps(compare_sass(os.path.abspath(args[1]), os.path.abspath(args[2]))))
+        return 0
+    root = os.path.abspath(args[0] if args else os.path.dirname(__file__))
     sys.path.insert(0, root)
     import torch
 

@@ -11,12 +11,18 @@ machine with PyTorch alone (tests/conftest.py imports JAX):
 
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
 """
+import os.path as osp
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
 from torch_windows import ragged, windows
+
+sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
+import chip_smoke  # noqa: E402  (the cull's model, pair_cull_stats)
 
 torch.set_num_threads(2)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -171,6 +177,73 @@ def test_bwd_wrapper_rejects(scene, cotangent, bad):
     with pytest.raises((TypeError, ValueError)):
         kn.composite_pairs_bwd_rg(s["rows"], s["tid"], s["flags"], s["bg"], 0.0, full, g_full,
                                   TILE, 16, 256, 4)
+
+
+def _pair_windows(rng, case, T=6, nx=3, K=700, tile=TILE):
+    """Windows for the pair-major kernels' warp cull (8 x 8 pixel patches):
+    ``small``, Gaussians of sigma 0.3-2 px, far smaller than a patch;
+    ``edges``, centers on the patch and tile borders (x and y multiples of
+    8, and the tile's own edges), so boxes straddle them; ``counts``, tiles
+    of 1, 255, 257, 300, 513 and 700 rows, none a multiple of 256."""
+    th, tw = tile
+    t = np.arange(T)
+    origins = np.stack([(t % nx) * tw, (t // nx) * th], 1).astype(np.float32)
+    u = lambda: rng.uniform(size=(T, K))
+    lo, span = (0.3, 1.7) if case == "small" else (0.5, 3.0)
+    sx, sy = lo + span * u(), lo + span * u()
+    rho = 1.8 * u() - 0.9
+    gx = origins[:, :1] - 4 + (tw + 8) * u()
+    gy = origins[:, 1:] - 4 + (th + 8) * u()
+    if case == "edges":
+        gx = origins[:, :1] + 8.0 * rng.integers(0, tw // 8 + 1, (T, K)) - 0.5 + 0.02 * u()
+        gy = origins[:, 1:] + 8.0 * rng.integers(0, th // 8 + 1, (T, K)) - 0.5 + 0.02 * u()
+    det = (sx * sy) ** 2 * (1 - rho ** 2)
+    log_op = np.log(0.02 + 0.98 * u())
+    z = np.zeros((T, K))
+    win = np.stack([sy ** 2 / det, -rho * sx * sy / det, sx ** 2 / det, gx, gy, log_op, z, z,
+                    u(), u(), u(), 1 + 4 * u()], 1).astype(np.float32)
+    counts = np.full(T, K, np.int32)
+    if case == "counts":
+        counts[:] = [1, 255, 257, 300, 513, 700]
+        win[:, 5][np.arange(K)[None, :] >= counts[:, None]] = -1e9
+    return win, counts, origins
+
+
+def _pair_kernels_against_plain(dev, win, counts, origins, tile, nx, chunk):
+    """Kernel 7 bit for bit and kernel 8 row by row against their plain
+    versions on the ragged form of dense windows; returns the CUDA windows."""
+    T = win.shape[0]
+    rows, tid, flags = ragged(win, counts, chunk)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rows, tid, flags = to(rows), to(tid), to(flags)
+    bg = torch.tensor([1.0, 0.5, 0.25], device=dev)
+    args = (rows, tid, flags, bg, 0.0, tile, T, chunk, nx)
+    full = kn.composite_pairs_fwd_rg(*args)
+    assert torch.equal(full, kn.composite_pairs_fwd_rg_plain(*args))
+    g_full = torch.randn(full.shape, generator=torch.Generator().manual_seed(4)).to(dev)
+    bargs = (rows, tid, flags, bg, 0.0, full, g_full, tile, T, chunk, nx)
+    got = kn.composite_pairs_bwd_rg(*bargs)
+    assert _worst_row(got, kn.composite_pairs_bwd_rg_plain(*bargs), 0) <= 1e-4
+    assert not got[:, rows[5] <= -1e9].any() and not got[:, -chunk:].any()
+    return to(win), to(counts), to(origins), bg
+
+
+@pytest.mark.parametrize("case", ["small", "edges", "counts"])
+def test_pair_kernels_equal_plain_where_the_cull_bites(dev, case):
+    """Where the per-warp cull and the exp gate skip most visits."""
+    win, counts, origins = _pair_windows(np.random.default_rng(21), case)
+    w, n, o, bg = _pair_kernels_against_plain(dev, win, counts, origins, TILE, 3, 256)
+    # the cull does skip rows here: most (warp, row) pairs the warps reach
+    _, visits = kn.composite_plain_with_visits(w, n, o, bg, TILE)
+    st = chip_smoke.pair_cull_stats(w, n, o, TILE, visits)
+    assert st.warp_rows_culled > st.warp_rows // 2
+
+
+def test_pair_kernels_past_65535_tiles(dev):
+    """More tiles than a grid's y dimension holds: 66,000 tiles of 8 x 8."""
+    win, counts, origins = _pair_windows(np.random.default_rng(22), "small", T=66_000, nx=300,
+                                         K=12, tile=(8, 8))
+    _pair_kernels_against_plain(dev, win, counts, origins, (8, 8), 300, 16)
 
 
 @pytest.mark.parametrize("pair_major", [False, True], ids=["dense", "pair_major"])
