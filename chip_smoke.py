@@ -12,9 +12,10 @@ the JAX package) and fails with a non-zero exit when any phase fails:
    against its plain PyTorch version on the card, on seeded random windows at
    the 1080p tiling (random cotangents for the backward; each of its ten used
    rows against that row's own largest value), and the forward kernels
-   against each other on the same scene; for the pair-major kernels (7 and
-   8) it prints, here, at the animate frame and at the train render, what
-   their per-warp row cull leaves (``pair_cull_stats``, a model of it), and after
+   against each other on the same scene; the forward kernels bit for bit.
+   For the channel-major kernels (1, 2, 7 and 8, one body each way) it
+   prints, here, at the animate frame and at the train render, what their
+   per-warp row cull leaves (``pair_cull_stats``, a model of it), and after
    the build their registers, shared memory and spills;
 3. renders the golden scenes of ``tests/goldens`` through the dense and the
    pair-major path and compares outputs and input gradients with the
@@ -355,12 +356,13 @@ def ptxas_resources(lib: str, entry: str) -> dict:
     return out
 
 
-def pairs_resources() -> dict:
+def cm_resources() -> dict:
     """{kernel: (registers, shared bytes, spill stores, spill loads)} of
-    kernels 7 and 8."""
+    the channel-major kernels 1, 2, 7 and 8."""
     out = {}
+    entry = r"(composite_(?:tiles_(?:fwd|bwd)_cm|pairs_(?:fwd|bwd)_rg))_kernel"
     for lib in ("composite", "composite_bwd"):
-        for (name,), r in ptxas_resources(lib, r"(composite_pairs_(?:fwd|bwd)_rg)_kernel").items():
+        for (name,), r in ptxas_resources(lib, entry).items():
             out[name] = r
     return out
 
@@ -371,7 +373,7 @@ PAIRS_R, LANES_W, LANES_H, PAIR_WARPS = 2, 8, 4, 8
 
 
 class PairLayout(NamedTuple):
-    """Where kernels 7 and 8 put each pixel of a th x tw tile
+    """Where kernels 1, 2, 7 and 8 put each pixel of a th x tw tile
     (composite_common.cuh ``pair_pixels``). Per tile-local pixel i (P,):
     ``patch``, its warp's patch (block * PAIR_WARPS + warp of the block),
     ``lane`` and ``slot`` (0..PAIRS_R-1 within the thread's column);
@@ -413,7 +415,7 @@ def patch_misses(box, bounds, origins):
 
 
 class CullStats(NamedTuple):
-    """What the per-warp row cull of kernels 7 and 8 leaves to do."""
+    """What the per-warp row cull of kernels 1, 2, 7 and 8 leaves to do."""
 
     visits: int  # (pixel, row) visits of the plain version, trigger included
     visits_left: int  # of those, the ones whose row the pixel's warp does not cull
@@ -454,10 +456,12 @@ def pair_cull_stats(win, counts, origins, tile_shape, visits,
 
 
 def pair_cull(tag: str, win, counts, origins, tile_shape, visits) -> None:
-    """Logs what the per-warp row cull of kernels 7 and 8 leaves of a scene
-    (its dense windows and the plain version's visits per pixel)."""
+    """Logs what the per-warp row cull leaves of a scene (its dense windows
+    and the plain version's visits per pixel): the dense kernels' cull, and
+    the pair-major kernels', which run the same body on the same rows."""
     st = pair_cull_stats(win, counts, origins, tile_shape, visits)
-    log(f"[{tag}] pair-major cull: plain visits {st.visits}, left after the cull "
+    log(f"[{tag}] dense cull (= the pair-major cull: the same rows, the same body): "
+        f"plain visits {st.visits}, left after the cull "
         f"{st.visits_left} ({st.visits_left / max(1, st.visits):.4f}); (warp, row) pairs "
         f"reached {st.warp_rows}, culled {st.warp_rows_culled} "
         f"({st.warp_rows_culled / max(1, st.warp_rows):.4f})")
@@ -512,8 +516,10 @@ def phase_kernels_random(device, T=510, K=1024, tile_shape=(32, 128), nx=15,
         log_grad_rows("kernels/random", k, res[k])
     log(f"[kernels/random] backward: zeros where no row lives: {zeros_ok}")
     pair_cull("kernels/random", win, counts, origins, (th, tw), visits)
-    res["ok"] = zeros_ok and all(within(res[k], TOL) for k in
-                                 ("composite_tiles_fwd_cm", "composite_pairs_fwd_rg", "k1_vs_k2"))
+    # the forward kernels round every operation as the plain version does
+    exact = torch.equal(out1, ref1) and torch.equal(out2, ref2)
+    log(f"[kernels/random] forward kernels bit-equal to their plain versions: {exact}")
+    res["ok"] = zeros_ok and exact and within(res["k1_vs_k2"], TOL)
     res["ok"] &= all(res[k]["ok"] for k in BWD_KERNELS)
     rm = kernels_random_rm(win, counts, origins, bg, out1, (th, tw))
     res["ok"] &= rm.pop("ok")
@@ -595,13 +601,14 @@ def phase_goldens(device) -> bool:
     import torch
 
     from exavatar_release_tpu_torch.core.camera import Camera
-    from exavatar_release_tpu_torch.ops.rasterizer import RasterizeSettings, rasterize
+    from exavatar_release_tpu_torch.ops.rasterizer import RasterizeSettings, api, rasterize
+    from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
 
     g_names = ("g_means3d", "g_scales", "g_quats", "g_opacities", "g_rgbs")
 
-    def render_and_grads(d, s, dev):
-        """Outputs and the input gradients of the goldens' fixed cotangent
-        (tests/test_goldens.py:_loss), on device ``dev``."""
+    def scene(d, dev):
+        """The golden scene's Gaussians (differentiable), live mask, camera,
+        image shape and background on device ``dev``."""
         H, W = int(d["H"]), int(d["W"])
         f = float(d["focal"])
         cam = Camera(torch.eye(3, device=dev), torch.zeros(3, device=dev),
@@ -609,14 +616,37 @@ def phase_goldens(device) -> bool:
                      torch.tensor([W / 2.0, H / 2.0], device=dev))
         args = [torch.from_numpy(d[k]).to(dev).requires_grad_(True)
                 for k in ("means3d", "scales", "quats", "opacities", "rgbs")]
-        o = rasterize(*args, torch.from_numpy(d["live"]).to(dev), cam, (H, W),
-                      torch.from_numpy(d["bg"]).to(dev), s)
+        return args, torch.from_numpy(d["live"]).to(dev), cam, (H, W), torch.from_numpy(
+            d["bg"]).to(dev)
+
+    def render_and_grads(d, s, dev):
+        """Outputs and the input gradients of the goldens' fixed cotangent
+        (tests/test_goldens.py:_loss), on device ``dev``."""
+        args, live, cam, (H, W), bg = scene(d, dev)
+        o = rasterize(*args, live, cam, (H, W), bg, s)
         wimg = (torch.arange(H * W * 3, dtype=torch.float32, device=dev).reshape(H, W, 3)
                 % 7.0 + 1.0) / 7.0
         wd = (torch.arange(H * W, dtype=torch.float32, device=dev).reshape(H, W) % 5.0 + 1.0) / 5.0
         loss = ((o["img"] * wimg).sum() + (o["depth"] * wd).sum()
                 + (o["mask"] * wd.T.reshape(H, W)).sum())
         return o, [g.cpu() for g in torch.autograd.grad(loss, args)]
+
+    def forward_exact(d, s, dev) -> bool:
+        """The forward kernel of the path against its plain version on the
+        scene's own windows, bit for bit."""
+        args, live, cam, img, bg = scene(d, dev)
+        with torch.no_grad():
+            inp = api.prepare(*args, live, cam, img, s)
+            got = api.composite(inp, bg, s)
+            b = inp.binning
+            if s.pair_major:
+                ny, nx = b.num_tiles
+                want = kn.composite_pairs_fwd_rg_plain(inp.rows, b.tid, b.flags, bg, 0.0,
+                                                       inp.tile_shape, ny * nx, inp.chunk, nx)
+            else:
+                want = kn.composite_tiles_fwd_cm_plain(inp.rows, b.tile_counts, inp.origins, bg,
+                                                       inp.tile_shape)
+        return torch.equal(got, want)
 
     paths = sorted(glob.glob(os.path.join(REPO, "tests", "goldens", "scene*.npz")))
     ok = bool(paths)
@@ -638,12 +668,13 @@ def phase_goldens(device) -> bool:
             _, cpu_grads = render_and_grads(d, s, "cpu")
             g_golden = max(scaled_err(g, torch.from_numpy(d[n])) for g, n in zip(grads, g_names))
             g_plain = max(scaled_err(g, c) for g, c in zip(grads, cpu_grads))
-            good &= g_golden <= g_tol and g_plain <= 1e-4
+            exact = forward_exact(d, s, device)
+            good &= g_golden <= g_tol and g_plain <= 1e-4 and exact
             ok &= good
             log(f"[goldens] {os.path.basename(p)} pair_major={pm} max abs diff {err}; input "
                 f"gradients, max scaled diff: vs golden {g_golden:.3e} (limit {g_tol}), vs the "
-                f"plain backward on the CPU {g_plain:.3e} (limit 0.0001) "
-                f"{'ok' if good else 'FAIL'}")
+                f"plain backward on the CPU {g_plain:.3e} (limit 0.0001); forward kernel "
+                f"bit-equal to its plain version: {exact} {'ok' if good else 'FAIL'}")
     return ok
 
 
@@ -772,8 +803,10 @@ def phase_animate(device, img=(1080, 1920), focal=1200.0, dense_k=16384, timing_
         ref2 = kn.composite_pairs_fwd_rg_plain(*rg)
         sync()
         err1, err2 = max_err(out1, ref1), max_err(out2, ref2)
-        check("composite_tiles_fwd_cm vs plain (frame 0)", within(err1, TOL), f"{err1}")
-        check("composite_pairs_fwd_rg vs plain (frame 0)", within(err2, TOL), f"{err2}")
+        check("composite_tiles_fwd_cm vs plain (frame 0)", torch.equal(out1, ref1),
+              f"{err1}, bit for bit")
+        check("composite_pairs_fwd_rg vs plain (frame 0)", torch.equal(out2, ref2),
+              f"{err2}, bit for bit")
         # the window kernel (kernel 11) on this frame's sorted pairs
         ok_w, detail = windows_on_binning(ind.screen, (H, W), ind.tile_shape, dense_k, b,
                                           dense.pairs_per_gaussian * a.mean_3d.shape[0])
@@ -1106,14 +1139,24 @@ def phase_frame(device, timing_iters=2, **setup_kw) -> dict:
         log_grad_rows("frame", f"{k} (scene+human render)", e)
     check("dense vs pair-major forward", float((full_d - full_r).abs().max()) <= 1e-6,
           f"max abs diff {float((full_d - full_r).abs().max())}")
-    _, visits = kn.composite_plain_with_visits(ind.rows, bd.tile_counts, ind.origins, ones,
-                                               ind.tile_shape)
+    ref_d, visits = kn.composite_plain_with_visits(ind.rows, bd.tile_counts, ind.origins, ones,
+                                                   ind.tile_shape)
+    check("composite_tiles_fwd_cm vs plain (scene+human render)", torch.equal(full_d, ref_d),
+          f"{max_err(full_d, ref_d)}, bit for bit")
     pair_cull("frame", ind.rows, bd.tile_counts, ind.origins, ind.tile_shape, visits)
-    del visits
 
-    # bound of the backward: operations of the replay against the bytes
+    # bound of the forward at this render (as phase_animate's), then of the
+    # backward: operations of the replay against the bytes
     live_rows = int(torch.clamp(bd.tile_counts.long(), max=ind.rows.shape[2]).sum())
     T, P = full_d.shape[0], full_d.shape[2]
+    n_visits = int(visits.sum())
+    del visits, ref_d
+    f_ops = n_visits * OPS_PER_VISIT / PEAK_F32_FLOPS
+    f_bytes = (live_rows * BYTES_PER_ROW + T * P * BYTES_PER_PIXEL + T * 12) / PEAK_BYTES
+    f_by = "operations" if f_ops >= f_bytes else "bytes"
+    fwd_bound = f"{1e3 * max(f_ops, f_bytes):.6f} ms ({f_by})"
+    log(f"[frame] forward kernels' bound at this render {fwd_bound} (ops {1e3 * f_ops:.6f} ms "
+        f"from {n_visits} visits x {OPS_PER_VISIT}; bytes {1e3 * f_bytes:.6f} ms)")
     ops_s = (stats.visits * OPS_PER_VISIT + stats.hits * OPS_PER_HIT) / PEAK_F32_FLOPS
     stat = {}
     for k, out_bytes, plain_ms in (
@@ -1139,7 +1182,7 @@ def phase_frame(device, timing_iters=2, **setup_kw) -> dict:
         for k in BWD_KERNELS:
             log(f"[frame] {k}: {stat[k]['ms']:.4f} ms, plain {stat[k]['plain_ms']:.2f} ms, "
                 f"bound {stat[k]['bound_ms']:.6f} ms ({stat[k]['bound_by']})")
-        log(f"[frame] forward kernels on the same render: {fwd_ms}")
+        log(f"[frame] forward kernels on the same render: {fwd_ms} ms, bound {fwd_bound}")
     res["kernel_stats"] = stat
     del dwin, drows, dwin_ref, drows_ref, ind, inr, full_d, full_r, g_full, leaf, image
 
@@ -1967,7 +2010,7 @@ def main() -> int:
         for line in cuda_build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {lib}: {line.strip()}")
-    for k, (regs, smem, st, ld) in pairs_resources().items():
+    for k, (regs, smem, st, ld) in cm_resources().items():
         log(f"[build] {k}: {regs} registers, {smem} bytes shared memory, spills {st} B stored / "
             f"{ld} B loaded")
 
@@ -1998,7 +2041,7 @@ def main() -> int:
         return 0 if ok else 1
 
     kernels = []
-    pairs = pairs_resources()
+    cm_res = cm_resources()
     for name in ALL_KERNELS:
         fwd = name in FWD_KERNELS + RM_FWD_KERNELS
         # channel-major and pair-major forward kernels: measured on the animate
@@ -2035,8 +2078,8 @@ def main() -> int:
             if not fwd:  # the figure the backward kernels are held to (GRAD_TOL)
                 entry["max_row_rel_err"] = max(st["max_row_rel_err"],
                                                rnd[name]["max_row_rel_err"])
-        if name in pairs:  # kernels 7 and 8, from this run's build log
-            entry["registers_smem_spills"] = pairs[name]
+        if name in cm_res:  # kernels 1, 2, 7 and 8, from this run's build log
+            entry["registers_smem_spills"] = cm_res[name]
         kernels.append(entry)
     if not ok:
         print("chip_smoke: FAILED (see the lines above)", file=sys.stderr)

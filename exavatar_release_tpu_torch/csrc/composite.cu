@@ -24,15 +24,14 @@
 // pixel, so on this card the kernels are bound by operations (PERF.md holds
 // the bound and the measured times at the avatar's shapes).
 //
-// composite_tiles_fwd_cm (renderCUDA's design): a block owns 256 pixels of
-// one tile, one thread per pixel. It stages 256 rows at a time in shared
-// memory (10 used channels x 256 floats = 10 KB), each channel a coalesced
-// load, and every thread walks the batch in depth order.
-// __syncthreads_count ends the block once all its pixels are done.
-//
-// composite_pairs_fwd_rg cuts the per-visit cost that is not the blend's
-// arithmetic: shared-memory reads, exps of Gaussians that are skipped, and
-// visits of Gaussians far from the pixels.
+// Design, one body (composite_pairs_range) for both kernels: a block
+// composites rows [begin, begin + n) of a channel-major row table into its
+// part of one tile, staging 256 rows at a time in shared memory. The dense
+// kernel hands it the tile's window (stride K, begin 0, n = min(count, K)),
+// the pair-major kernel the tile's slot range of the pair list. The body
+// cuts the per-visit cost that is not the blend's arithmetic: shared-memory
+// reads, exps of Gaussians that are skipped, and visits of Gaussians far
+// from the pixels.
 // - A thread owns R = kPairsR = 2 pixels (a column of two), and a warp a
 //   compact patch (8 x 8 pixels): a block covers 512 pixels, so each row is
 //   staged 8 times per 32 x 128 tile, not 16 times. A visit reads the row
@@ -45,7 +44,8 @@
 // - The exp gate (reaches_gated): q < kQGate skips without an expf (at the
 //   avatar's train render about 70% of the visits contribute nothing).
 // Each pixel keeps its own sticky termination; a thread leaves the batch
-// when both its pixels are done, the block when all are.
+// when both its pixels are done, the block when all are. The grid is
+// one-dimensional, pair_blocks(th, tw) adjacent blocks a tile.
 //
 // The thresholds, the row staging and the blend of one Gaussian at one pixel
 // are in composite_common.cuh, which the backward kernels share. Build with
@@ -57,71 +57,14 @@ namespace {
 
 using namespace composite;
 
-// Composite rows [begin, begin + n) of a channel-major row table (channel c
-// of row r at rows[c * stride + r]) into the pixels of one tile. The block's
-// threads own pixels blockIdx.y * kBlock + threadIdx.x of that tile.
-__device__ void composite_range(const float* __restrict__ rows, long long stride,
-                                long long begin, int n, float ox, float oy,
-                                int th, int tw, const float* __restrict__ bg,
-                                float* __restrict__ out_tile) {
-  __shared__ float s[kChannels][kBlock];
-  const int P = th * tw;
-  const int i = blockIdx.y * kBlock + threadIdx.x;
-  const bool inside = i < P;
-  const float px = (float)(i % tw) + ox;
-  const float py = (float)(i / tw) + oy;
-
-  bool done = !inside;
-  float T = 1.0f, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, c3 = 0.0f;
-  for (int b = 0; b < n; b += kBlock) {
-    // barrier before overwriting the batch; also the block's exit test
-    if (__syncthreads_count(done) == kBlock) break;
-    stage_row(s, rows, stride, begin, b + threadIdx.x, n);
-    __syncthreads();
-    const int m = min(kBlock, n - b);
-    for (int j = 0; !done && j < m; ++j) {
-      float dx, dy, alpha_un;
-      if (!reaches(s, j, px, py, dx, dy, alpha_un)) continue;
-      const float alpha = clamped(alpha_un);
-      const float test_T = T * (1.0f - alpha);
-      if (ends_pixel(test_T)) {
-        done = true;
-        break;
-      }
-      const float w = alpha * T;
-      c0 = c0 + w * s[6][j];
-      c1 = c1 + w * s[7][j];
-      c2 = c2 + w * s[8][j];
-      c3 = c3 + w * s[9][j];
-      T = test_T;
-    }
-  }
-  if (inside) {
-    out_tile[0 * P + i] = c0 + T * bg[0];
-    out_tile[1 * P + i] = c1 + T * bg[1];
-    out_tile[2 * P + i] = c2 + T * bg[2];
-    out_tile[3 * P + i] = c3;
-    out_tile[4 * P + i] = 1.0f - T;
-  }
-}
-
-__global__ void __launch_bounds__(kBlock)
-composite_tiles_fwd_cm_kernel(const float* __restrict__ win, const int* __restrict__ counts,
-                              const float* __restrict__ origins, const float* __restrict__ bg,
-                              float* __restrict__ out, int K, int th, int tw) {
-  const int t = blockIdx.x;
-  const int n = min(counts[t], K);
-  composite_range(win + (long long)t * 12 * K, K, 0, n, origins[2 * t],
-                  origins[2 * t + 1], th, tw, bg, out + (long long)t * 5 * th * tw);
-}
-
 // Composite rows [begin, begin + n) of a channel-major row table into the
 // pixels of one tile, kPairsR pixels a thread (pair_pixels, blk the block's
 // index within the tile).
-__device__ void composite_pairs_range(const float* __restrict__ rows, long long stride, int blk,
-                                      long long begin, int n, float ox, float oy, int th,
-                                      int tw, const float* __restrict__ bg,
-                                      float* __restrict__ out_tile) {
+__device__ __forceinline__ void composite_pairs_range(const float* __restrict__ rows,
+                                                     long long stride, int blk, long long begin,
+                                                     int n, float ox, float oy, int th, int tw,
+                                                     const float* __restrict__ bg,
+                                                     float* __restrict__ out_tile) {
   constexpr int R = kPairsR;
   __shared__ PairRows s;
   const int P = th * tw;
@@ -189,6 +132,19 @@ __device__ void composite_pairs_range(const float* __restrict__ rows, long long 
   }
 }
 
+// the first min(counts[t], K) rows of tile t's window win[t] (12, K)
+__global__ void __launch_bounds__(kBlock, 2)
+composite_tiles_fwd_cm_kernel(const float* __restrict__ win, const int* __restrict__ counts,
+                              const float* __restrict__ origins, const float* __restrict__ bg,
+                              float* __restrict__ out, int K, int th, int tw) {
+  const int nb = pair_blocks(th, tw);
+  const int t = blockIdx.x / nb;
+  const int blk = blockIdx.x - t * nb;
+  composite_pairs_range(win + (long long)t * 12 * K, K, blk, 0, min(counts[t], K),
+                        origins[2 * t], origins[2 * t + 1], th, tw, bg,
+                        out + (long long)t * 5 * th * tw);
+}
+
 __global__ void __launch_bounds__(kBlock, 2)
 composite_pairs_fwd_rg_kernel(const float* __restrict__ rows, const int* __restrict__ slot_start,
                               const int* __restrict__ slot_count, const float* __restrict__ bg,
@@ -213,7 +169,7 @@ extern "C" {
 int composite_tiles_fwd_cm(const float* win, const int* counts, const float* origins,
                            const float* bg, float* out, int T, int K, int th, int tw,
                            void* stream) {
-  const dim3 grid(T, (th * tw + kBlock - 1) / kBlock);
+  const dim3 grid(T * pair_blocks(th, tw));
   composite_tiles_fwd_cm_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       win, counts, origins, bg, out, K, th, tw);
   return (int)cudaGetLastError();

@@ -32,30 +32,29 @@
 // The TPU kernels reach the conic gradient through a pixel-basis matmul and
 // a de-localisation; that was a device for the TPU's matrix unit.
 //
-// Design of composite_tiles_bwd_cm. A block owns 256 pixels of one tile,
-// one thread per pixel, and stages 256 rows at a time in shared memory, as
-// the forward does. The reduction over pixels has three levels: a warp sums
-// its 32 pixels' ten gradient values with __shfl_down_sync, and only for
-// rows that some pixel of the warp hits (one ballot per row otherwise);
-// lane 0 adds the warp's sum into the batch's accumulators in shared memory;
-// after the batch the block adds its nonzero accumulators into the output
-// with atomicAdd, where the tile's other blocks (16 at 32x128) add theirs.
-// The output must arrive zeroed. Atomics make the order of summation differ
-// from run to run: the result agrees with the plain PyTorch version within
-// float32 summation error, not bit for bit.
-//
-// Design of composite_pairs_bwd_rg. Its time went to the reduction over
-// pixels (half of it in the probes of kernel 6, which runs the same loop):
-// not to the instruction count of one reduction but to their number, one
-// ballot, a five-deep shuffle chain and a shared atomic per (warp, row)
-// hit. So it reduces fewer times, with the forward's schedule
-// (composite.cu): a thread owns R = kPairsR = 2 pixels of a compact warp
-// patch and first adds its two pixels' ten values in registers, so one warp
-// reduction serves 64 pixels and 8 blocks of a 32x128 tile add each row
-// into device memory, not 16; rows whose pixel box misses the warp's
-// patch are skipped before any exp, and the exp gate skips the rest of the
-// far ones without an expf. Both are exact: the replay takes the forward's
-// decisions. The three levels of the reduction and the zeroed output stay.
+// Design, one body (composite_pairs_range_bwd) for both kernels: the dense
+// kernel hands it a tile's window (stride K, begin 0, n = min(count, K), the
+// tile's dwin as output), the pair-major kernel the tile's slot range of the
+// pair list. The reduction over pixels has three levels: a warp sums its
+// pixels' ten gradient values with __shfl_down_sync, and only for rows that
+// some pixel of the warp hits (one ballot per row otherwise); lane 0 adds
+// the warp's sum into the batch's accumulators in shared memory; after the
+// batch the block adds its nonzero accumulators into the output with
+// atomicAdd, where the tile's other blocks add theirs. The output must
+// arrive zeroed. Atomics make the order of summation differ from run to
+// run: the result agrees with the plain PyTorch version within float32
+// summation error, not bit for bit.
+// The time goes to the reduction over pixels (half of it in the probes of
+// kernel 6, which runs a one-pixel-a-thread loop): not to the instruction
+// count of one reduction but to their number, one ballot, a five-deep
+// shuffle chain and a shared atomic per (warp, row) hit. So the body
+// reduces few times, with the forward's schedule (composite.cu): a thread
+// owns R = kPairsR = 2 pixels of a compact warp patch and first adds its
+// two pixels' ten values in registers, so one warp reduction serves 64
+// pixels and 8 blocks of a 32x128 tile add each row into device memory;
+// rows whose pixel box misses the warp's patch are skipped before any exp,
+// and the exp gate skips the rest of the far ones without an expf. Both are
+// exact: the replay takes the forward's decisions.
 //
 // Bound: ~13 f32 operations per (pixel, Gaussian) visit plus ~37 per visit
 // that contributes, against 40 bytes per live row read, 40 per pixel read
@@ -74,133 +73,13 @@ using namespace composite;
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// Gradient of rows [begin, begin + n) of a channel-major row table (channel
-// c of row r at rows[c * stride + r]) from the pixels of one tile; drows has
-// the table's layout. The block's threads own pixels blockIdx.y * kBlock +
-// threadIdx.x of that tile.
-__device__ void composite_range_bwd(const float* __restrict__ rows, long long stride,
-                                    long long begin, int n, float ox, float oy, int th, int tw,
-                                    const float* __restrict__ bg,
-                                    const float* __restrict__ full_tile,
-                                    const float* __restrict__ gfull_tile,
-                                    float* __restrict__ drows) {
-  __shared__ float s[kChannels][kBlock];
-  __shared__ float acc[kChannels][kBlock];
-  const int P = th * tw;
-  const int i = blockIdx.y * kBlock + threadIdx.x;
-  const bool inside = i < P;
-  const float px = (float)(i % tw) + ox;
-  const float py = (float)(i / tw) + oy;
-  const int lane = threadIdx.x & 31;
-
-  float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f, g3 = 0.0f, A_p = 0.0f;
-  if (inside) {
-    const float bg0 = bg[0], bg1 = bg[1], bg2 = bg[2];
-    const float f0 = full_tile[0 * P + i], f1 = full_tile[1 * P + i];
-    const float f2 = full_tile[2 * P + i], f3 = full_tile[3 * P + i];
-    const float tfinal = 1.0f - full_tile[4 * P + i];
-    g0 = gfull_tile[0 * P + i];
-    g1 = gfull_tile[1 * P + i];
-    g2 = gfull_tile[2 * P + i];
-    g3 = gfull_tile[3 * P + i];
-    const float g_tf = bg0 * g0 + bg1 * g1 + bg2 * g2 - gfull_tile[4 * P + i];
-    A_p = g0 * (f0 - bg0 * tfinal) + g1 * (f1 - bg1 * tfinal) + g2 * (f2 - bg2 * tfinal) +
-          g3 * f3 + g_tf * tfinal;
-  }
-
-  bool done = !inside;
-  float T = 1.0f, prefix = 0.0f;
-  for (int b = 0; b < n; b += kBlock) {
-    // barrier before overwriting the batch; also the block's exit test
-    if (__syncthreads_count(done) == kBlock) break;
-    const int k = b + threadIdx.x;
-    stage_row(s, rows, stride, begin, k, n);
-#pragma unroll
-    for (int c = 0; c < kChannels; ++c) acc[c][threadIdx.x] = 0.0f;
-    __syncthreads();
-    const int m = min(kBlock, n - b);
-    for (int j = 0; j < m; ++j) {
-      if (__all_sync(kFullWarp, done)) break;
-      float v[kChannels];
-#pragma unroll
-      for (int c = 0; c < kChannels; ++c) v[c] = 0.0f;
-      bool hit = false;
-      if (!done) {
-        float dx, dy, alpha_un;
-        if (reaches(s, j, px, py, dx, dy, alpha_un)) {
-          const float alpha = clamped(alpha_un);
-          const float one_m = 1.0f - alpha;
-          const float test_T = T * one_m;
-          if (ends_pixel(test_T)) {
-            done = true;
-          } else {
-            hit = true;
-            const float A = s[0][j], B = s[1][j], C = s[2][j];
-            const float w = alpha * T;
-            const float cg = g0 * s[6][j] + g1 * s[7][j] + g2 * s[8][j] + g3 * s[9][j];
-            prefix = prefix + w * cg;
-            const float dalpha = T * cg - (A_p - prefix) / one_m;
-            const float dq = dalpha * alpha_un;
-            v[0] = -0.5f * (dx * dx) * dq;
-            v[1] = -(dx * dy) * dq;
-            v[2] = -0.5f * (dy * dy) * dq;
-            v[3] = (A * dx + B * dy) * dq;
-            v[4] = (B * dx + C * dy) * dq;
-            v[5] = dq;
-            v[6] = w * g0;
-            v[7] = w * g1;
-            v[8] = w * g2;
-            v[9] = w * g3;
-            T = test_T;
-          }
-        }
-      }
-      // warp-uniform: skip the reduction of a row no pixel of the warp hits
-      if (__ballot_sync(kFullWarp, hit) == 0u) continue;
-#pragma unroll
-      for (int c = 0; c < kChannels; ++c) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v[c] += __shfl_down_sync(kFullWarp, v[c], off);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int c = 0; c < kChannels; ++c) atomicAdd(&acc[c][j], v[c]);
-      }
-    }
-    __syncthreads();
-    if (k < n) {
-      float* d = drows + begin + k;
-#pragma unroll
-      for (int c = 0; c < kChannels; ++c) {
-        const float a = acc[c][threadIdx.x];
-        // channels 0-5 keep their row, the four colors go to rows 8-11
-        if (a != 0.0f) atomicAdd(d + (c < 6 ? c : c + 2) * stride, a);
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kBlock)
-composite_tiles_bwd_cm_kernel(const float* __restrict__ win, const int* __restrict__ counts,
-                              const float* __restrict__ origins, const float* __restrict__ bg,
-                              const float* __restrict__ full, const float* __restrict__ g_full,
-                              float* __restrict__ dwin, int K, int th, int tw) {
-  const int t = blockIdx.x;
-  const int n = min(counts[t], K);
-  const long long tile = (long long)t * 5 * th * tw;
-  composite_range_bwd(win + (long long)t * 12 * K, K, 0, n, origins[2 * t], origins[2 * t + 1],
-                      th, tw, bg, full + tile, g_full + tile, dwin + (long long)t * 12 * K);
-}
-
 // Gradient of rows [begin, begin + n) of a channel-major row table from the
 // pixels of one tile, kPairsR pixels a thread (pair_pixels, blk the block's
 // index within the tile); drows has the table's layout.
-__device__ void composite_pairs_range_bwd(const float* __restrict__ rows, long long stride,
-                                          int blk, long long begin, int n, float ox, float oy,
-                                          int th, int tw, const float* __restrict__ bg,
-                                          const float* __restrict__ full_tile,
-                                          const float* __restrict__ gfull_tile,
-                                          float* __restrict__ drows) {
+__device__ __forceinline__ void composite_pairs_range_bwd(
+    const float* __restrict__ rows, long long stride, int blk, long long begin, int n, float ox,
+    float oy, int th, int tw, const float* __restrict__ bg, const float* __restrict__ full_tile,
+    const float* __restrict__ gfull_tile, float* __restrict__ drows) {
   constexpr int R = kPairsR;
   __shared__ PairRows s;
   __shared__ float acc[kChannels][kBlock];
@@ -321,7 +200,23 @@ __device__ void composite_pairs_range_bwd(const float* __restrict__ rows, long l
   }
 }
 
-// 4 blocks an SM (64 registers, no spills), 6-7% faster than 3 on an H100
+// Both kernels: 4 blocks an SM (64 registers for the pair-major one, no
+// spills) measured 6-7% faster than 3 for it on an H100
+__global__ void __launch_bounds__(kBlock, 4)
+composite_tiles_bwd_cm_kernel(const float* __restrict__ win, const int* __restrict__ counts,
+                              const float* __restrict__ origins, const float* __restrict__ bg,
+                              const float* __restrict__ full, const float* __restrict__ g_full,
+                              float* __restrict__ dwin, int K, int th, int tw) {
+  const int nb = pair_blocks(th, tw);
+  const int t = blockIdx.x / nb;
+  const int blk = blockIdx.x - t * nb;
+  const long long tile = (long long)t * 5 * th * tw;
+  // tile t's window and its gradient: channel c of row k at [t * 12 K + c K + k]
+  composite_pairs_range_bwd(win + (long long)t * 12 * K, K, blk, 0, min(counts[t], K),
+                            origins[2 * t], origins[2 * t + 1], th, tw, bg, full + tile,
+                            g_full + tile, dwin + (long long)t * 12 * K);
+}
+
 __global__ void __launch_bounds__(kBlock, 4)
 composite_pairs_bwd_rg_kernel(const float* __restrict__ rows, const int* __restrict__ slot_start,
                               const int* __restrict__ slot_count, const float* __restrict__ bg,
@@ -349,7 +244,7 @@ extern "C" {
 int composite_tiles_bwd_cm(const float* win, const int* counts, const float* origins,
                            const float* bg, const float* full, const float* g_full, float* dwin,
                            int T, int K, int th, int tw, void* stream) {
-  const dim3 grid(T, (th * tw + kBlock - 1) / kBlock);
+  const dim3 grid(T * pair_blocks(th, tw));
   composite_tiles_bwd_cm_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       win, counts, origins, bg, full, g_full, dwin, K, th, tw);
   return (int)cudaGetLastError();

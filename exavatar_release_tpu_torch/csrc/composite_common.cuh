@@ -28,20 +28,9 @@ constexpr float kAlphaMin = (float)(1.0 / 255.0);
 constexpr float kAlphaMax = (float)0.99;
 constexpr float kTermEps = (float)1e-4;
 
-// Thread x of the block stages row begin + k (k < n) of a channel-major row
-// table (channel c of row r at rows[c * stride + r]) as s[.][x] = [A, B, C,
-// gx, gy, log_op, r, g, b, depth]: the row without its unused channels 6
-// and 7. Each channel is a coalesced load across the block.
-__device__ __forceinline__ void stage_row(float (*s)[kBlock], const float* __restrict__ rows,
-                                          long long stride, long long begin, int k, int n) {
-  if (k >= n) return;
-  const float* r = rows + begin + k;
-#pragma unroll
-  for (int c = 0; c < 6; ++c) s[c][threadIdx.x] = r[c * stride];
-#pragma unroll
-  for (int c = 8; c < 12; ++c) s[c - 2][threadIdx.x] = r[c * stride];
-}
-
+// The row-major kernels (composite_rm.cu) stage rows as s[.][j] and test
+// them with the two functions below and reaches_packed.
+//
 // Staged Gaussian j at pixel (px, py), in the direct conic form:
 //   q = log_op - 0.5 (A dx^2 + C dy^2) - B dx dy,  dx = px - gx, dy = py - gy
 __device__ __forceinline__ float conic_q(float (*s)[kBlock], int j, float px, float py,
@@ -83,8 +72,9 @@ __device__ __forceinline__ float clamped(float alpha_un) { return fminf(alpha_un
 __device__ __forceinline__ bool ends_pixel(float test_T) { return test_T < kTermEps; }
 
 // ---------------------------------------------------------------------------
-// The pair-major kernels (composite_pairs_fwd_rg, composite_pairs_bwd_rg)
-// only. The kernels above do not use anything below.
+// The schedule of the channel-major kernels, dense and pair-major
+// (composite_tiles_{fwd,bwd}_cm, composite_pairs_{fwd,bwd}_rg: one body each
+// for the forward and the backward). The row-major kernels use nothing below.
 //
 // A thread owns kPairsR = 2 pixels, a column of two; a warp's 8 x 4 lanes
 // own a patch of kPatchW x kPatchH = 8 x 8 pixels, and patches are numbered

@@ -246,6 +246,50 @@ def test_pair_kernels_past_65535_tiles(dev):
     _pair_kernels_against_plain(dev, win, counts, origins, (8, 8), 300, 16)
 
 
+def _dense_kernels_against_plain(dev, win, counts, origins, tile):
+    """Kernel 1 bit for bit and kernel 2 row by row against their plain
+    versions on dense windows; kernel 2's channels 6-7 (in ``_worst_row``)
+    and its slots at or past each tile's count exactly zero."""
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    win, counts, origins = to(win), to(counts), to(origins)
+    bg = torch.tensor([1.0, 0.5, 0.25], device=dev)
+    args = (win, counts, origins, bg, tile)
+    full = kn.composite_tiles_fwd_cm(*args)
+    assert torch.equal(full, kn.composite_tiles_fwd_cm_plain(*args))
+    g_full = torch.randn(full.shape, generator=torch.Generator().manual_seed(5)).to(dev)
+    bargs = (win, counts, origins, bg, full, g_full, tile)
+    got = kn.composite_tiles_bwd_cm(*bargs)
+    assert _worst_row(got, kn.composite_tiles_bwd_cm_plain(*bargs), 1) <= 1e-4
+    past = torch.arange(win.shape[2], device=dev)[None, :] >= counts[:, None]
+    assert not got.permute(0, 2, 1)[past].any()
+
+
+@pytest.mark.parametrize("case", ["small", "edges", "counts", "truncated", "off_grid"])
+def test_dense_kernels_equal_plain_where_the_cull_bites(dev, case):
+    """The dense kernels on the pair-major cases' windows, and on what only
+    dense windows hold: counts above K (the kernels read min(count, K) rows)
+    beside an empty tile, and origins off the tile grid (half a pixel and a
+    band offset)."""
+    rng = np.random.default_rng(23)
+    win, counts, origins = _pair_windows(rng, case if case in ("small", "edges", "counts")
+                                         else "small")
+    K = win.shape[2]
+    if case == "truncated":
+        counts[:] = [K + 1, 3 * K, K, 0, 300, K + 7]
+    elif case == "off_grid":
+        shift = np.asarray([0.5, 1045.25], np.float32)
+        origins += shift
+        win[:, 3:5] += shift[None, :, None]
+    _dense_kernels_against_plain(dev, win, counts, origins, TILE)
+
+
+def test_dense_kernels_past_65535_tiles(dev):
+    """The dense kernels' one-dimensional grid: 66,000 tiles of 8 x 8."""
+    win, counts, origins = _pair_windows(np.random.default_rng(24), "small", T=66_000, nx=300,
+                                         K=12, tile=(8, 8))
+    _dense_kernels_against_plain(dev, win, counts, origins, (8, 8))
+
+
 @pytest.mark.parametrize("pair_major", [False, True], ids=["dense", "pair_major"])
 def test_rasterize_gradients_card_vs_cpu(dev, pair_major):
     """The whole differentiable render: the kernels on the card against

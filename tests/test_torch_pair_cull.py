@@ -1,9 +1,10 @@
-"""The pair-major kernels' schedule on the CPU (csrc/composite.cu
-``composite_pairs_range``, csrc/composite_bwd.cu ``composite_pairs_range_bwd``):
-the per-warp row cull by ``kernels.row_pixel_box`` and the exp gate
-``kernels.Q_GATE`` must change nothing, so the schedule's forward is the
-plain version's bit for bit and its backward the plain version's up to the
-order of its sums. The kernels themselves run only on the card
+"""The channel-major kernels' schedule on the CPU (csrc/composite.cu
+``composite_pairs_range``, csrc/composite_bwd.cu ``composite_pairs_range_bwd``,
+the one body of the dense and the pair-major kernels): the per-warp row cull
+by ``kernels.row_pixel_box`` and the exp gate ``kernels.Q_GATE`` must change
+nothing, so the schedule's forward is the plain version's bit for bit and
+its backward the plain version's up to the order of its sums, on ragged and
+on dense windows. The kernels themselves run only on the card
 (tests/test_torch_cuda.py)."""
 import math
 import os.path as osp
@@ -228,23 +229,23 @@ def scene():
     dwin, width, dorig, idx = kn._ragged_as_dense(rows, tid, flags, 0.0, TILE, T, CHUNK, NX)
     _, visits = kn.composite_plain_with_visits(dwin, width, dorig, bg, TILE)
     return dict(rows=rows, tid=tid, flags=flags, bg=bg, full=full, g_full=g_full, drows=drows,
-                win=dwin, width=width, origins=dorig, idx=idx, visits=visits)
+                win=dwin, width=width, origins=dorig, idx=idx, visits=visits, tile=TILE)
 
 
 def _schedule(s, g_full=None):
-    """The kernels' schedule on the gathered windows: per row, the warp
+    """The kernels' schedule on windows (a tile's rows k < width): per row, the warp
     patches its box misses skip it, and q < Q_GATE skips before the exp; the
     blend and replay are ``_scan_forward``'s and ``_replay_backward``'s. With
     ``g_full`` the replay's per-pixel values are summed as the kernel sums
     them: a thread's two pixels in turn, then the warp's lanes by
     __shfl_down_sync's tree, then the patches. Returns (out or dwin, number of
     visits culled, number spared an exp by the gate)."""
-    win, n, origins, bg = s["win"], s["width"].long(), s["origins"], s["bg"]
+    win, n, origins, bg, tile = s["win"], s["width"].long(), s["origins"], s["bg"], s["tile"]
     Tn, _, Kw = win.shape
     R = chip_smoke.PAIRS_R
-    lay = chip_smoke.pair_layout(TILE)
-    P = TILE[0] * TILE[1]
-    px, py = kn._tile_pixels(Tn, TILE, win.device, origins)
+    lay = chip_smoke.pair_layout(tile)
+    P = tile[0] * tile[1]
+    px, py = kn._tile_pixels(Tn, tile, win.device, origins)
     miss_all = chip_smoke.patch_misses(kn.row_pixel_box(win.permute(1, 0, 2)), lay.bounds, origins)
     acc = torch.zeros(4, Tn, P)
     Tr = torch.ones(Tn, P)
@@ -331,3 +332,34 @@ def test_schedule_backward_is_the_plain_version(scene):
     assert bool((ref[used] > 0).all())
     assert float((err[used] / ref[used]).max()) <= 1e-6
     assert not drows[6:8].any() and not drows[:, s["rows"][5] <= -1e9].any()
+
+
+def test_schedule_on_dense_windows():
+    """The dense kernels run the same body on windows the ragged path never
+    hands it: a tile whose count exceeds K (the kernel reads min(count, K)
+    rows), an empty tile, origins off the tile grid (half a pixel and a band
+    offset) and a 20 x 36 tile, not a multiple of the 8 x 8 patch."""
+    tile, Kd = (20, 36), 97
+    win, counts, origins = chip_smoke.random_windows(4, Kd, tile, 2, seed=3, device="cpu")
+    counts[:2] = torch.tensor([Kd + 40, 0], dtype=torch.int32)
+    origins = origins + torch.tensor([0.5, 1045.25])
+    win[:, 3] += 0.5
+    win[:, 4] += 1045.25
+    bg = torch.tensor([1.0, 0.5, 0.25])
+    dense = (win, counts, origins, bg, tile)
+    full = kn.composite_tiles_fwd_cm_plain(*dense)
+    g_full = torch.randn(full.shape, generator=torch.Generator().manual_seed(4))
+    s = dict(win=win, width=torch.clamp(counts, max=Kd), origins=origins, bg=bg, tile=tile,
+             full=full)
+    out, culled, gated = _schedule(s)
+    assert torch.equal(out, full) and culled > 0 and gated > 0
+    assert torch.equal(full[1, :3], bg[:, None].expand(3, tile[0] * tile[1]))
+    assert not full[1, 3:].any()
+    dwin, _, _ = _schedule(s, g_full)
+    want = kn.composite_tiles_bwd_cm_plain(win, counts, origins, bg, full, g_full, tile)
+    err, ref = kn.bwd_row_errors(dwin, want, 1)
+    used = [0, 1, 2, 3, 4, 5, 8, 9, 10, 11]
+    assert bool((ref[used] > 0).all())
+    assert float((err[used] / ref[used]).max()) <= 1e-6
+    past = torch.arange(Kd)[None, :] >= counts[:, None]
+    assert not want[:, 6:8].any() and not want.permute(0, 2, 1)[past].any()
