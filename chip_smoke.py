@@ -13,10 +13,11 @@ the JAX package) and fails with a non-zero exit when any phase fails:
    the 1080p tiling (random cotangents for the backward; each of its ten used
    rows against that row's own largest value), and the forward kernels
    against each other on the same scene; the forward kernels bit for bit.
-   For the channel-major kernels (1, 2, 7 and 8, one body each way) it
-   prints, here, at the animate frame and at the train render, what their
-   per-warp row cull leaves (``pair_cull_stats``, a model of it), and after
-   the build their registers, shared memory and spills;
+   For the kernels on the pair bodies (1, 2, 7 and 8, and kernel_v=2's 3
+   and 4; one body each way) it prints, here, at the animate frame, at the
+   train render and (3, 4) at the trainer's windows, what their per-warp
+   row cull leaves (``pair_cull_stats``, a model of it), and after the
+   build their registers, shared memory and spills;
 3. renders the golden scenes of ``tests/goldens`` through the dense and the
    pair-major path and compares outputs and input gradients with the
    frozen reference and with the same render on CPU tensors;
@@ -93,10 +94,13 @@ RM_BWD_KERNELS = ("composite_tiles_bwd_v2", "composite_tiles_bwd")
 # the measuring kernels of the probe tools
 PROBE_KERNELS = ("composite_tiles_fwd_variant", "composite_tiles_bwd_variant", "tile_windows")
 ALL_KERNELS = FWD_KERNELS + BWD_KERNELS + RM_FWD_KERNELS + RM_BWD_KERNELS + PROBE_KERNELS
-KERNEL_SOURCE = {k: "exavatar_release_tpu_torch/csrc/composite.cu" for k in FWD_KERNELS}
-KERNEL_SOURCE.update({k: "exavatar_release_tpu_torch/csrc/composite_bwd.cu" for k in BWD_KERNELS})
+# kernels 1-4, 7 and 8 run the pair bodies of composite.cu / composite_bwd.cu
+KERNEL_SOURCE = {k: "exavatar_release_tpu_torch/csrc/composite.cu"
+                 for k in FWD_KERNELS + RM_FWD_KERNELS[:1]}
+KERNEL_SOURCE.update({k: "exavatar_release_tpu_torch/csrc/composite_bwd.cu"
+                      for k in BWD_KERNELS + RM_BWD_KERNELS[:1]})
 KERNEL_SOURCE.update({k: "exavatar_release_tpu_torch/csrc/composite_rm.cu"
-                      for k in RM_FWD_KERNELS + RM_BWD_KERNELS + PROBE_KERNELS[:2]})
+                      for k in RM_FWD_KERNELS[1:] + RM_BWD_KERNELS[1:] + PROBE_KERNELS[:2]})
 KERNEL_SOURCE["tile_windows"] = "exavatar_release_tpu_torch/csrc/windows.cu"
 _PK = "exavatar_release_tpu/ops/rasterizer/pallas_kernels.py"
 REPLACES = {
@@ -356,11 +360,11 @@ def ptxas_resources(lib: str, entry: str) -> dict:
     return out
 
 
-def cm_resources() -> dict:
+def pair_resources() -> dict:
     """{kernel: (registers, shared bytes, spill stores, spill loads)} of
-    the channel-major kernels 1, 2, 7 and 8."""
+    the kernels on the pair bodies: 1, 2, 7, 8 and kernel_v=2's 3 and 4."""
     out = {}
-    entry = r"(composite_(?:tiles_(?:fwd|bwd)_cm|pairs_(?:fwd|bwd)_rg))_kernel"
+    entry = r"(composite_(?:tiles_(?:fwd|bwd)_(?:cm|v2)|pairs_(?:fwd|bwd)_rg))_kernel"
     for lib in ("composite", "composite_bwd"):
         for (name,), r in ptxas_resources(lib, entry).items():
             out[name] = r
@@ -373,7 +377,7 @@ PAIRS_R, LANES_W, LANES_H, PAIR_WARPS = 2, 8, 4, 8
 
 
 class PairLayout(NamedTuple):
-    """Where kernels 1, 2, 7 and 8 put each pixel of a th x tw tile
+    """Where kernels 1-4, 7 and 8 put each pixel of a th x tw tile
     (composite_common.cuh ``pair_pixels``). Per tile-local pixel i (P,):
     ``patch``, its warp's patch (block * PAIR_WARPS + warp of the block),
     ``lane`` and ``slot`` (0..PAIRS_R-1 within the thread's column);
@@ -415,7 +419,8 @@ def patch_misses(box, bounds, origins):
 
 
 class CullStats(NamedTuple):
-    """What the per-warp row cull of kernels 1, 2, 7 and 8 leaves to do."""
+    """What the per-warp row cull of the pair bodies (kernels 1-4, 7, 8)
+    leaves to do."""
 
     visits: int  # (pixel, row) visits of the plain version, trigger included
     visits_left: int  # of those, the ones whose row the pixel's warp does not cull
@@ -425,23 +430,32 @@ class CullStats(NamedTuple):
 
 def pair_cull_stats(win, counts, origins, tile_shape, visits,
                     tiles_per_step: int = 32) -> CullStats:
-    """The cull's effect on dense windows (T, 12, K), from the plain
-    version's visits (T, P) per pixel (``kernels.composite_plain_with_visits``):
-    a pixel evaluates rows k < visits, and a warp reaches rows below the
-    largest visits of its patch. A model of the kernels' schedule from
-    ``kernels.row_pixel_box``; the kernels count nothing themselves."""
+    """The cull's effect on dense windows (T, 12, K) at the tiles' origins,
+    or with ``origins`` None on packed rows (T, K, 8) in tile-local
+    coordinates (kernels 3 and 4), from the plain version's visits (T, P)
+    per pixel (``kernels.composite_plain_with_visits``,
+    ``composite_rm_plain_with_visits``): a pixel evaluates rows k <
+    visits, and a warp reaches rows below the largest visits of its patch. A
+    model of the kernels' schedule from ``kernels.row_pixel_box`` /
+    ``packed_row_pixel_box``; the kernels count nothing themselves."""
     import torch
 
     from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
 
-    T, _, K = win.shape
+    packed = origins is None
+    T = win.shape[0]
+    K = win.shape[1] if packed else win.shape[2]
+    if packed:
+        origins = torch.zeros(T, 2, device=win.device)
     lay = pair_layout(tile_shape, win.device)
     npatch = lay.bounds.shape[0]
     n = torch.clamp(counts.long(), max=K)
     total = torch.zeros(4, dtype=torch.int64, device=win.device)
     for t0 in range(0, T, tiles_per_step):
         sl = slice(t0, min(T, t0 + tiles_per_step))
-        miss = patch_misses(kn.row_pixel_box(win[sl].permute(1, 0, 2)), lay.bounds, origins[sl])
+        box = (kn.packed_row_pixel_box(win[sl], tile_shape) if packed
+               else kn.row_pixel_box(win[sl].permute(1, 0, 2)))
+        miss = patch_misses(box, lay.bounds, origins[sl])
         live = torch.arange(K, device=win.device)[None, None, :] < n[sl, None, None]
         zero = torch.zeros(miss.shape[0], npatch, 1, dtype=torch.int64, device=win.device)
         keep = torch.cat([zero, torch.cumsum(~miss & live, 2)], 2)  # rows kept below k
@@ -456,12 +470,15 @@ def pair_cull_stats(win, counts, origins, tile_shape, visits,
 
 
 def pair_cull(tag: str, win, counts, origins, tile_shape, visits) -> None:
-    """Logs what the per-warp row cull leaves of a scene (its dense windows
-    and the plain version's visits per pixel): the dense kernels' cull, and
-    the pair-major kernels', which run the same body on the same rows."""
+    """Logs what the per-warp row cull leaves of a scene (its dense windows,
+    or packed rows with ``origins`` None, and the plain version's visits per
+    pixel): for windows the dense kernels' cull and the pair-major kernels',
+    which run the same body on the same rows; for packed rows kernels 3 and
+    4's."""
     st = pair_cull_stats(win, counts, origins, tile_shape, visits)
-    log(f"[{tag}] dense cull (= the pair-major cull: the same rows, the same body): "
-        f"plain visits {st.visits}, left after the cull "
+    what = ("kernel_v=2 packed cull (kernels 3 and 4, tile-local boxes)" if origins is None
+            else "dense cull (= the pair-major cull: the same rows, the same body)")
+    log(f"[{tag}] {what}: plain visits {st.visits}, left after the cull "
         f"{st.visits_left} ({st.visits_left / max(1, st.visits):.4f}); (warp, row) pairs "
         f"reached {st.warp_rows}, culled {st.warp_rows_culled} "
         f"({st.warp_rows_culled / max(1, st.warp_rows):.4f})")
@@ -544,7 +561,7 @@ def kernels_random_rm(win, counts, origins, bg, full_cm, tile_shape) -> dict:
     f3 = kn.composite_tiles_fwd_v2(packed, color, counts, tile_shape)
     f5 = kn.composite_tiles_fwd(packed, color, counts, tile_shape)
     f5o = kn.composite_tiles_fwd(rows_g, color, counts, tile_shape, origins)
-    p3 = kn.composite_tiles_fwd_v2_plain(packed, color, counts, tile_shape)
+    *p3, visits3 = kn.composite_rm_plain_with_visits(packed, color, counts, tile_shape)
     p5o = kn.composite_tiles_fwd_plain(rows_g, color, counts, tile_shape, origins)
     over_bg = torch.cat([f5o[0][..., 0:3] + f5o[1] * bg, f5o[0][..., 3:4], 1.0 - f5o[1]],
                         dim=2).permute(0, 2, 1)
@@ -575,6 +592,9 @@ def kernels_random_rm(win, counts, origins, bg, full_cm, tile_shape) -> dict:
         log(f"[kernels/random] {k} max abs diff {res[k]} (limits {TOL})")
     log(f"[kernels/random] composite_tiles_fwd_v2 == composite_tiles_fwd without origins, "
         f"bit for bit: {same}")
+    log(f"[kernels/random] composite_tiles_fwd_v2 == its plain version, bit for bit: "
+        f"{torch.equal(f3[0], p3[0]) and torch.equal(f3[1], p3[1])}")
+    pair_cull("kernels/random", packed, counts, None, tile_shape, visits3)
     for k, what in (("composite_tiles_bwd_v2", "packed rows"),
                     ("composite_tiles_bwd", "global rows + origins"),
                     ("composite_tiles_bwd_packed", "composite_tiles_bwd, packed rows")):
@@ -1461,6 +1481,10 @@ def phase_train(device, steps=4, timing_iters=2, grow_to=1 << 16, start_kw=None,
         plain_f_ms = 1e3 * (time.perf_counter() - t0)
         e_f = rm_max_err(got_f, (accum_p, tfinal_p))
         check(f"{fwd_name} vs plain (scene+human windows)", within(e_f, TOL), f"{e_f}")
+        if o is None:  # kernels 3 and 4: the packed cull, and whether 3 is exact here too
+            log(f"[train] {fwd_name} == its plain version, bit for bit: "
+                f"{torch.equal(got_f[0], accum_p) and torch.equal(got_f[1], tfinal_p)}")
+            pair_cull("train", quad, counts, None, tile, visits)
         cot = cotangents(*got_f)
         got_b = bwd(quad, color, counts, *cot, *got_f, tile, *extra)
         sync()
@@ -2010,7 +2034,7 @@ def main() -> int:
         for line in cuda_build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {lib}: {line.strip()}")
-    for k, (regs, smem, st, ld) in cm_resources().items():
+    for k, (regs, smem, st, ld) in pair_resources().items():
         log(f"[build] {k}: {regs} registers, {smem} bytes shared memory, spills {st} B stored / "
             f"{ld} B loaded")
 
@@ -2041,7 +2065,7 @@ def main() -> int:
         return 0 if ok else 1
 
     kernels = []
-    cm_res = cm_resources()
+    pair_res = pair_resources()
     for name in ALL_KERNELS:
         fwd = name in FWD_KERNELS + RM_FWD_KERNELS
         # channel-major and pair-major forward kernels: measured on the animate
@@ -2078,8 +2102,8 @@ def main() -> int:
             if not fwd:  # the figure the backward kernels are held to (GRAD_TOL)
                 entry["max_row_rel_err"] = max(st["max_row_rel_err"],
                                                rnd[name]["max_row_rel_err"])
-        if name in cm_res:  # kernels 1, 2, 7 and 8, from this run's build log
-            entry["registers_smem_spills"] = cm_res[name]
+        if name in pair_res:  # kernels 1-4, 7 and 8, from this run's build log
+            entry["registers_smem_spills"] = pair_res[name]
         kernels.append(entry)
     if not ok:
         print("chip_smoke: FAILED (see the lines above)", file=sys.stderr)

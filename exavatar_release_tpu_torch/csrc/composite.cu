@@ -1,16 +1,20 @@
 // Tile compositing kernels for Hopper (sm_90a): the forward of the 3DGS
 // rasterizer's front-to-back alpha blend.
 //
-// Replaces two Pallas TPU kernels of
+// Replaces three Pallas TPU kernels of
 // exavatar_release_tpu/ops/rasterizer/pallas_kernels.py:
 //   composite_tiles_fwd_cm   (dense (T, 12, K) depth-sorted windows)
 //   composite_pairs_fwd_rg   (ragged chunk-aligned (12, Pa) pair list)
-// Both compute renderCUDA's rules, as jax_ref.py states them:
-//   q = log_op - 0.5 (A dx^2 + C dy^2) - B dx dy   (direct conic form)
+//   composite_tiles_fwd_v2   (kernel_v=2: packed (T, K, 8) rows, (T, K, 4) colors)
+// All compute renderCUDA's rules, as jax_ref.py states them:
+//   q = log_op - 0.5 (A dx^2 + C dy^2) - B dx dy   (direct conic form), or
+//   q = c0 + c1 lx + c2 ly + c3 lx^2 + c4 lx ly + c5 ly^2 at the tile-local
+//       pixel, summed in this order (packed rows, kernel_v=2)
 //   skip when q > log_op or exp(q) < 1/255;  alpha = min(0.99, exp(q))
 //   test_T = T (1 - alpha); test_T < 1e-4 ends the pixel, excluding the
 //   Gaussian that triggers it;  C += col alpha T;  T = test_T
-//   out = [rgb + bg T, depth, 1 - T]
+//   out = [rgb + bg T, depth, 1 - T]  (kernel_v=2: accum = C, NOT over a
+//   background, and tfinal = T)
 // T is a sequential f32 product, as in the plain PyTorch twin
 // (ops/rasterizer/kernels.py). The TPU kernels' log-space triangular-matmul
 // prefix was a device for the TPU's matrix unit and is not carried over.
@@ -20,29 +24,33 @@
 // block.
 //
 // Bound: the work is ~13 f32 operations (one exp) per (pixel, Gaussian)
-// visit before termination, against 40 bytes per live row and 20 per output
-// pixel, so on this card the kernels are bound by operations (PERF.md holds
-// the bound and the measured times at the avatar's shapes).
+// visit before termination, against 40 bytes per live row (48 packed) and
+// 20 per output pixel, so on this card the kernels are bound by operations
+// (PERF.md holds the bound and the measured times at the avatar's shapes).
 //
-// Design, one body (composite_pairs_range) for both kernels: a block
-// composites rows [begin, begin + n) of a channel-major row table into its
-// part of one tile, staging 256 rows at a time in shared memory. The dense
-// kernel hands it the tile's window (stride K, begin 0, n = min(count, K)),
-// the pair-major kernel the tile's slot range of the pair list. The body
-// cuts the per-visit cost that is not the blend's arithmetic: shared-memory
-// reads, exps of Gaussians that are skipped, and visits of Gaussians far
-// from the pixels.
+// Design, one body (composite_pairs_range) for the three kernels, templated
+// on PACKED: a block composites rows [begin, begin + n) of a row table into
+// its part of one tile, staging 256 rows at a time in shared memory. The
+// dense kernel hands it the tile's window (stride K, begin 0, n = min(count,
+// K)), the pair-major kernel the tile's slot range of the pair list, the
+// kernel_v=2 kernel the tile's packed rows (n = min(count, K), origin (0, 0):
+// its pixels, patches and boxes are tile-local). PACKED changes the staging
+// (three 16-byte loads a row), q and its box (packed_pixel_box), and the
+// output; the schedule is one. The body cuts the per-visit cost that is not
+// the blend's arithmetic: shared-memory reads, exps of Gaussians that are
+// skipped, and visits of Gaussians far from the pixels.
 // - A thread owns R = kPairsR = 2 pixels (a column of two), and a warp a
 //   compact patch (8 x 8 pixels): a block covers 512 pixels, so each row is
 //   staged 8 times per 32 x 128 tile, not 16 times. A visit reads the row
 //   from shared memory once for both pixels (three broadcast vector loads),
 //   and the two pixels' chains are independent.
 // - Each staged row carries a conservative pixel box (composite_common.cuh
-//   pixel_box); a warp whose patch misses it skips the row with one
-//   warp-uniform test, before any exp. This is exact: every pixel of the
-//   patch would skip that row.
-// - The exp gate (reaches_gated): q < kQGate skips without an expf (at the
-//   avatar's train render about 70% of the visits contribute nothing).
+//   pixel_box, packed_pixel_box); a warp whose patch misses it skips the row
+//   with one warp-uniform test, before any exp. This is exact: every pixel
+//   of the patch would skip that row.
+// - The exp gate (reaches_gated, reaches_packed_gated): q < kQGate skips
+//   without an expf (at the avatar's train render about 70% of the visits
+//   contribute nothing).
 // Each pixel keeps its own sticky termination; a thread leaves the batch
 // when both its pixels are done, the block when all are. The grid is
 // one-dimensional, pair_blocks(th, tw) adjacent blocks a tile.
@@ -57,22 +65,38 @@ namespace {
 
 using namespace composite;
 
-// Composite rows [begin, begin + n) of a channel-major row table into the
-// pixels of one tile, kPairsR pixels a thread (pair_pixels, blk the block's
-// index within the tile).
+// Composite rows [begin, begin + n) of a row table into the pixels of one
+// tile, kPairsR pixels a thread (pair_pixels, blk the block's index within
+// the tile). Conic rows: a channel-major table (stride), out_tile (5, P)
+// over the background bg. PACKED: a tile's packed rows (rows = quad (K, 8),
+// color (K, 4), begin 0, origin (0, 0)), out_tile = accum (P, 4) and tf_tile
+// = tfinal (P,).
+template <bool PACKED>
 __device__ __forceinline__ void composite_pairs_range(const float* __restrict__ rows,
+                                                     const float* __restrict__ color,
                                                      long long stride, int blk, long long begin,
                                                      int n, float ox, float oy, int th, int tw,
                                                      const float* __restrict__ bg,
-                                                     float* __restrict__ out_tile) {
+                                                     float* __restrict__ out_tile,
+                                                     float* __restrict__ tf_tile) {
   constexpr int R = kPairsR;
-  __shared__ PairRows s;
+  __shared__ RowsOf<PACKED> s;
   const int P = th * tw;
   const PairPixels pp = pair_pixels(blk, tw, ox, oy);
   const float px = (float)pp.x + ox;
   float py[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) py[r] = (float)(pp.y + r) + oy;
+  // packed rows: each pixel's basis lx^2, lx ly, ly^2
+  float xx = 0.0f, xy[R], yy[R];
+  if constexpr (PACKED) {
+    xx = px * px;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      xy[r] = px * py[r];
+      yy[r] = py[r] * py[r];
+    }
+  }
 
   bool done[R];
   float T[R], c0[R], c1[R], c2[R], c3[R];
@@ -87,20 +111,29 @@ __device__ __forceinline__ void composite_pairs_range(const float* __restrict__ 
   for (int b = 0; b < n; b += kBlock) {
     // barrier before overwriting the batch; also the block's exit test
     if (__syncthreads_count(all_done) == kBlock) break;
-    stage_pair_row(s, rows, stride, begin, b + threadIdx.x, n);
+    if constexpr (PACKED) {
+      stage_packed_row(s, rows, color, b + threadIdx.x, n, th, tw);
+    } else {
+      stage_pair_row(s, rows, stride, begin, b + threadIdx.x, n);
+    }
     __syncthreads();
     const int m = min(kBlock, n - b);
     for (int j = 0; !all_done && j < m; ++j) {
       if (misses(s.box[j], pp.patch)) continue;
-      const float4 g = s.abcx[j];
-      const float2 h = s.ylo[j];
+      const float4 g = s.lo[j];
+      const auto h = s.hi[j];
       const float4 col = s.col[j];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (done[r]) continue;
-        float dx, dy, alpha_un;
-        if (!reaches_gated(g.x, g.y, g.z, g.w, h.x, h.y, px, py[r], dx, dy, alpha_un))
-          continue;
+        float alpha_un;
+        if constexpr (PACKED) {
+          if (!reaches_packed_gated(g, h, px, py[r], xx, xy[r], yy[r], alpha_un)) continue;
+        } else {
+          float dx, dy;
+          if (!reaches_gated(g.x, g.y, g.z, g.w, h.x, h.y, px, py[r], dx, dy, alpha_un))
+            continue;
+        }
         const float alpha = clamped(alpha_un);
         const float test_T = T[r] * (1.0f - alpha);
         if (ends_pixel(test_T)) {
@@ -124,11 +157,16 @@ __device__ __forceinline__ void composite_pairs_range(const float* __restrict__ 
     const int x = pp.x, y = pp.y + r;
     if (x >= tw || y >= th) continue;
     const int i = y * tw + x;
-    out_tile[0 * P + i] = c0[r] + T[r] * bg[0];
-    out_tile[1 * P + i] = c1[r] + T[r] * bg[1];
-    out_tile[2 * P + i] = c2[r] + T[r] * bg[2];
-    out_tile[3 * P + i] = c3[r];
-    out_tile[4 * P + i] = 1.0f - T[r];
+    if constexpr (PACKED) {
+      reinterpret_cast<float4*>(out_tile)[i] = make_float4(c0[r], c1[r], c2[r], c3[r]);
+      tf_tile[i] = T[r];
+    } else {
+      out_tile[0 * P + i] = c0[r] + T[r] * bg[0];
+      out_tile[1 * P + i] = c1[r] + T[r] * bg[1];
+      out_tile[2 * P + i] = c2[r] + T[r] * bg[2];
+      out_tile[3 * P + i] = c3[r];
+      out_tile[4 * P + i] = 1.0f - T[r];
+    }
   }
 }
 
@@ -140,9 +178,9 @@ composite_tiles_fwd_cm_kernel(const float* __restrict__ win, const int* __restri
   const int nb = pair_blocks(th, tw);
   const int t = blockIdx.x / nb;
   const int blk = blockIdx.x - t * nb;
-  composite_pairs_range(win + (long long)t * 12 * K, K, blk, 0, min(counts[t], K),
-                        origins[2 * t], origins[2 * t + 1], th, tw, bg,
-                        out + (long long)t * 5 * th * tw);
+  composite_pairs_range<false>(win + (long long)t * 12 * K, nullptr, K, blk, 0,
+                               min(counts[t], K), origins[2 * t], origins[2 * t + 1], th, tw,
+                               bg, out + (long long)t * 5 * th * tw, nullptr);
 }
 
 __global__ void __launch_bounds__(kBlock, 2)
@@ -155,9 +193,24 @@ composite_pairs_fwd_rg_kernel(const float* __restrict__ rows, const int* __restr
   const int blk = blockIdx.x - t * nb;
   const float ox = (float)((t % nx) * tw);
   const float oy = (float)((t / nx) * th) + oy_off;
-  composite_pairs_range(rows, Pa, blk, (long long)slot_start[t] * chunk,
-                        slot_count[t] * chunk, ox, oy, th, tw, bg,
-                        out + (long long)t * 5 * th * tw);
+  composite_pairs_range<false>(rows, nullptr, Pa, blk, (long long)slot_start[t] * chunk,
+                               slot_count[t] * chunk, ox, oy, th, tw, bg,
+                               out + (long long)t * 5 * th * tw, nullptr);
+}
+
+// the first min(counts[t], K) packed rows of tile t: quad (T, K, 8), color
+// (T, K, 4) -> accum (T, P, 4), tfinal (T, P, 1)
+__global__ void __launch_bounds__(kBlock, 2)
+composite_tiles_fwd_v2_kernel(const float* __restrict__ quad, const float* __restrict__ color,
+                              const int* __restrict__ counts, float* __restrict__ accum,
+                              float* __restrict__ tfinal, int K, int th, int tw) {
+  const int nb = pair_blocks(th, tw);
+  const int t = blockIdx.x / nb;
+  const int blk = blockIdx.x - t * nb;
+  const long long P = (long long)th * tw;
+  composite_pairs_range<true>(quad + (long long)t * K * 8, color + (long long)t * K * 4, 0, blk,
+                              0, min(counts[t], K), 0.0f, 0.0f, th, tw, nullptr,
+                              accum + t * P * 4, tfinal + t * P);
 }
 
 }  // namespace
@@ -183,6 +236,18 @@ int composite_pairs_fwd_rg(const float* rows, const int* slot_start, const int* 
   const dim3 grid(T * pair_blocks(th, tw));
   composite_pairs_fwd_rg_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       rows, slot_start, slot_count, bg, oy_off, out, Pa, chunk, th, tw, nx);
+  return (int)cudaGetLastError();
+}
+
+// quad (T, K, 8) f32 packed rows [c0..c5, log_op, 0]; color (T, K, 4) f32;
+// counts (T,) i32; accum (T, th*tw, 4) f32; tfinal (T, th*tw, 1) f32. quad,
+// color and accum 16-byte aligned.
+int composite_tiles_fwd_v2(const float* quad, const float* color, const int* counts,
+                           float* accum, float* tfinal, int T, int K, int th, int tw,
+                           void* stream) {
+  const dim3 grid(T * pair_blocks(th, tw));
+  composite_tiles_fwd_v2_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      quad, color, counts, accum, tfinal, K, th, tw);
   return (int)cudaGetLastError();
 }
 

@@ -2,40 +2,49 @@
 // 3DGS rasterizer's front-to-back alpha blend with respect to the
 // depth-sorted rows.
 //
-// Replaces two Pallas TPU kernels of
+// Replaces three Pallas TPU kernels of
 // exavatar_release_tpu/ops/rasterizer/pallas_kernels.py:
 //   composite_tiles_bwd_cm   (dense (T, 12, K) windows   -> dwin  (T, 12, K))
 //   composite_pairs_bwd_rg   (ragged (12, Pa) pair list  -> drows (12, Pa))
-// Output rows are [dA, dB, dC, dgx, dgy, dlog_op, 0, 0, dr, dg, db, ddepth].
+//   composite_tiles_bwd_v2   (kernel_v=2 packed (T, K, 8) rows and (T, K, 4)
+//                             colors -> dquad (T, K, 8), dcolor (T, K, 4))
+// Conic output rows are [dA, dB, dC, dgx, dgy, dlog_op, 0, 0, dr, dg, db,
+// ddepth]; packed ones [dc0..dc5, 0, 0] and [dr, dg, db, ddepth].
 //
-// What is computed. Per pixel, from the forward's saved output `full` and
-// its cotangent `g_full`:
+// What is computed. Per pixel, from the forward's saved output and its
+// cotangent: for conic rows `full` and `g_full`,
 //   tfinal = 1 - full[4];  g_acc = g_full[0:4];
 //   g_tf = bg . g_full[0:3] - g_full[4];  accum_rgb = full[0:3] - bg tfinal;
-//   A_p = g_acc . accum + g_tf tfinal.
+//   A_p = g_acc . accum + g_tf tfinal;
+// for packed rows A_p = g_accum . accum + g_tfinal tfinal from the two
+// cotangents and the forward's own accum and tfinal.
 // The forward is replayed front to back with the forward kernel's own rules
 // and arithmetic: both go through composite_common.cuh (the direct conic
-// q, the 1/255 floor, the 0.99 clamp, sticky termination at T (1 - alpha) <
-// 1e-4 that excludes the Gaussian that triggers it). Every Gaussian i that
-// contributed with weight w_i = alpha_i T_i gets
+// or the packed q, the 1/255 floor, the 0.99 clamp, sticky termination at T
+// (1 - alpha) < 1e-4 that excludes the Gaussian that triggers it). Every
+// Gaussian i that contributed with weight w_i = alpha_i T_i gets
 //   cg_i = g_acc . color_i;   P_i = sum_{j<=i} w_j cg_j   (inclusive prefix)
 //   dalpha_i = T_i cg_i - (A_p - P_i) / (1 - alpha_i)
 //   dq_i = dalpha_i exp(q_i)        (renderCUDA's rule: unclamped, also
 //                                    where alpha was clamped to 0.99)
 // and, summed over the tile's pixels, dcolor_i = sum w_i g_acc and the
-// gradient of q = log_op - 0.5 (A dx^2 + C dy^2) - B dx dy:
+// gradient of q: for conic rows q = log_op - 0.5 (A dx^2 + C dy^2) - B dx dy,
 //   dA = -0.5 dx^2 dq, dB = -dx dy dq, dC = -0.5 dy^2 dq,
-//   dgx = (A dx + B dy) dq, dgy = (B dx + C dy) dq, dlog_op = dq.
+//   dgx = (A dx + B dy) dq, dgy = (B dx + C dy) dq, dlog_op = dq;
+// for packed rows the tile-local basis [dq, dq lx, dq ly, dq lx^2, dq lx ly,
+// dq ly^2] (log_op reaches them through c0 only: lanes 6 and 7 stay zero).
 // No per-Gaussian transmittance is stored: A_p - P_i is what lies behind
 // Gaussian i, so the replay runs in the forward's order and ends where the
 // forward ended. 1 - alpha >= 0.01 by the clamp, so the division is safe.
 // The TPU kernels reach the conic gradient through a pixel-basis matmul and
 // a de-localisation; that was a device for the TPU's matrix unit.
 //
-// Design, one body (composite_pairs_range_bwd) for both kernels: the dense
-// kernel hands it a tile's window (stride K, begin 0, n = min(count, K), the
-// tile's dwin as output), the pair-major kernel the tile's slot range of the
-// pair list. The reduction over pixels has three levels: a warp sums its
+// Design, one body (composite_pairs_range_bwd) for the three kernels,
+// templated on PACKED as the forward's: the dense kernel hands it a tile's
+// window (stride K, begin 0, n = min(count, K), the tile's dwin as output),
+// the pair-major kernel the tile's slot range of the pair list, the
+// kernel_v=2 kernel the tile's packed rows and its dquad and dcolor. The
+// reduction over pixels has three levels: a warp sums its
 // pixels' ten gradient values with __shfl_down_sync, and only for rows that
 // some pixel of the warp hits (one ballot per row otherwise); lane 0 adds
 // the warp's sum into the batch's accumulators in shared memory; after the
@@ -57,9 +66,10 @@
 // exact: the replay takes the forward's decisions.
 //
 // Bound: ~13 f32 operations per (pixel, Gaussian) visit plus ~37 per visit
-// that contributes, against 40 bytes per live row read, 40 per pixel read
-// (full, g_full) and 40 per live row written: bound by operations at the
-// avatar's shapes (PERF.md holds the bound and the measured times).
+// that contributes, against 40 bytes per live row read (48 packed), 40 per
+// pixel read (full, g_full; accum, tfinal and their cotangents) and 40 (48)
+// per live row written: bound by operations at the avatar's shapes (PERF.md
+// holds the bound and the measured times).
 //
 // Build with -fmad=false and without fast math, like composite.cu: the
 // replay must take the forward's skip and termination decisions, which sit
@@ -73,15 +83,22 @@ using namespace composite;
 
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// Gradient of rows [begin, begin + n) of a channel-major row table from the
-// pixels of one tile, kPairsR pixels a thread (pair_pixels, blk the block's
-// index within the tile); drows has the table's layout.
+// Gradient of rows [begin, begin + n) of a row table from the pixels of one
+// tile, kPairsR pixels a thread (pair_pixels, blk the block's index within
+// the tile). Conic rows: a channel-major table (stride), full_tile and
+// gfull_tile (5, P), drows in the table's layout. PACKED: a tile's packed
+// rows (rows = quad (K, 8), color (K, 4), begin 0, origin (0, 0)), full_tile
+// = accum (P, 4), gfull_tile = g_accum (P, 4), tf_tile = tfinal (P,),
+// gtf_tile = g_tfinal (P,), drows = dquad (K, 8), dcolor (K, 4).
+template <bool PACKED>
 __device__ __forceinline__ void composite_pairs_range_bwd(
-    const float* __restrict__ rows, long long stride, int blk, long long begin, int n, float ox,
-    float oy, int th, int tw, const float* __restrict__ bg, const float* __restrict__ full_tile,
-    const float* __restrict__ gfull_tile, float* __restrict__ drows) {
+    const float* __restrict__ rows, const float* __restrict__ color, long long stride, int blk,
+    long long begin, int n, float ox, float oy, int th, int tw, const float* __restrict__ bg,
+    const float* __restrict__ full_tile, const float* __restrict__ gfull_tile,
+    const float* __restrict__ tf_tile, const float* __restrict__ gtf_tile,
+    float* __restrict__ drows, float* __restrict__ dcolor) {
   constexpr int R = kPairsR;
-  __shared__ PairRows s;
+  __shared__ RowsOf<PACKED> s;
   __shared__ float acc[kChannels][kBlock];
   // the warp's patch bounds, read with each row's box: kept in registers
   // they took the kernel to 72 registers and 3 blocks an SM
@@ -94,11 +111,26 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
   float py[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) py[r] = (float)(pp.y + r) + oy;
+  // packed rows: each pixel's basis lx^2, lx ly, ly^2
+  float xx = 0.0f, xy[R], yy[R];
+  if constexpr (PACKED) {
+    xx = px * px;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      xy[r] = px * py[r];
+      yy[r] = py[r] * py[r];
+    }
+  }
 
   bool done[R];
   float g0[R], g1[R], g2[R], g3[R], A_p[R], T[R], prefix[R];
   bool all_done = true;
-  const float bg0 = bg[0], bg1 = bg[1], bg2 = bg[2];
+  float bg0 = 0.0f, bg1 = 0.0f, bg2 = 0.0f;
+  if constexpr (!PACKED) {
+    bg0 = bg[0];
+    bg1 = bg[1];
+    bg2 = bg[2];
+  }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int x = pp.x, y = pp.y + r;
@@ -109,23 +141,38 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
     g0[r] = g1[r] = g2[r] = g3[r] = A_p[r] = 0.0f;
     if (done[r]) continue;
     const int i = y * tw + x;
-    const float f0 = full_tile[0 * P + i], f1 = full_tile[1 * P + i];
-    const float f2 = full_tile[2 * P + i], f3 = full_tile[3 * P + i];
-    const float tfinal = 1.0f - full_tile[4 * P + i];
-    g0[r] = gfull_tile[0 * P + i];
-    g1[r] = gfull_tile[1 * P + i];
-    g2[r] = gfull_tile[2 * P + i];
-    g3[r] = gfull_tile[3 * P + i];
-    const float g_tf = bg0 * g0[r] + bg1 * g1[r] + bg2 * g2[r] - gfull_tile[4 * P + i];
-    A_p[r] = g0[r] * (f0 - bg0 * tfinal) + g1[r] * (f1 - bg1 * tfinal) +
-             g2[r] * (f2 - bg2 * tfinal) + g3[r] * f3 + g_tf * tfinal;
+    if constexpr (PACKED) {
+      // the order of the plain version and of the TPU kernel's prologue
+      const float4 g = reinterpret_cast<const float4*>(gfull_tile)[i];
+      const float4 a = reinterpret_cast<const float4*>(full_tile)[i];
+      g0[r] = g.x;
+      g1[r] = g.y;
+      g2[r] = g.z;
+      g3[r] = g.w;
+      A_p[r] = g.x * a.x + g.y * a.y + g.z * a.z + g.w * a.w + gtf_tile[i] * tf_tile[i];
+    } else {
+      const float f0 = full_tile[0 * P + i], f1 = full_tile[1 * P + i];
+      const float f2 = full_tile[2 * P + i], f3 = full_tile[3 * P + i];
+      const float tfinal = 1.0f - full_tile[4 * P + i];
+      g0[r] = gfull_tile[0 * P + i];
+      g1[r] = gfull_tile[1 * P + i];
+      g2[r] = gfull_tile[2 * P + i];
+      g3[r] = gfull_tile[3 * P + i];
+      const float g_tf = bg0 * g0[r] + bg1 * g1[r] + bg2 * g2[r] - gfull_tile[4 * P + i];
+      A_p[r] = g0[r] * (f0 - bg0 * tfinal) + g1[r] * (f1 - bg1 * tfinal) +
+               g2[r] * (f2 - bg2 * tfinal) + g3[r] * f3 + g_tf * tfinal;
+    }
   }
 
   for (int b = 0; b < n; b += kBlock) {
     // barrier before overwriting the batch; also the block's exit test
     if (__syncthreads_count(all_done) == kBlock) break;
     const int k = b + threadIdx.x;
-    stage_pair_row(s, rows, stride, begin, k, n);
+    if constexpr (PACKED) {
+      stage_packed_row(s, rows, color, k, n, th, tw);
+    } else {
+      stage_pair_row(s, rows, stride, begin, k, n);
+    }
 #pragma unroll
     for (int c = 0; c < kChannels; ++c) acc[c][threadIdx.x] = 0.0f;
     __syncthreads();
@@ -134,8 +181,8 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
       if (__all_sync(kFullWarp, all_done)) break;
       // warp-uniform: every lane reads the same box and patch
       if (misses(s.box[j], patch[threadIdx.x >> 5])) continue;
-      const float4 g = s.abcx[j];
-      const float2 h = s.ylo[j];
+      const float4 g = s.lo[j];
+      const auto h = s.hi[j];
       const float4 col = s.col[j];
       float v[kChannels];
 #pragma unroll
@@ -145,8 +192,12 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
       for (int r = 0; r < R; ++r) {
         if (done[r]) continue;
         float dx, dy, alpha_un;
-        if (!reaches_gated(g.x, g.y, g.z, g.w, h.x, h.y, px, py[r], dx, dy, alpha_un))
-          continue;
+        if constexpr (PACKED) {
+          if (!reaches_packed_gated(g, h, px, py[r], xx, xy[r], yy[r], alpha_un)) continue;
+        } else {
+          if (!reaches_gated(g.x, g.y, g.z, g.w, h.x, h.y, px, py[r], dx, dy, alpha_un))
+            continue;
+        }
         const float alpha = clamped(alpha_un);
         const float one_m = 1.0f - alpha;
         const float test_T = T[r] * one_m;
@@ -160,12 +211,21 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
         prefix[r] = prefix[r] + w * cg;
         const float dalpha = T[r] * cg - (A_p[r] - prefix[r]) / one_m;
         const float dq = dalpha * alpha_un;
-        v[0] += -0.5f * (dx * dx) * dq;
-        v[1] += -(dx * dy) * dq;
-        v[2] += -0.5f * (dy * dy) * dq;
-        v[3] += (g.x * dx + g.y * dy) * dq;
-        v[4] += (g.y * dx + g.z * dy) * dq;
-        v[5] += dq;
+        if constexpr (PACKED) {
+          v[0] += dq;
+          v[1] += dq * px;
+          v[2] += dq * py[r];
+          v[3] += dq * xx;
+          v[4] += dq * xy[r];
+          v[5] += dq * yy[r];
+        } else {
+          v[0] += -0.5f * (dx * dx) * dq;
+          v[1] += -(dx * dy) * dq;
+          v[2] += -0.5f * (dy * dy) * dq;
+          v[3] += (g.x * dx + g.y * dy) * dq;
+          v[4] += (g.y * dx + g.z * dy) * dq;
+          v[5] += dq;
+        }
         v[6] += w * g0[r];
         v[7] += w * g1[r];
         v[8] += w * g2[r];
@@ -189,18 +249,29 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
     }
     __syncthreads();
     if (k < n) {
-      float* d = drows + begin + k;
+      if constexpr (PACKED) {
+        float* dq = drows + (long long)k * 8;
+        float* dc = dcolor + (long long)k * 4;
 #pragma unroll
-      for (int c = 0; c < kChannels; ++c) {
-        const float a = acc[c][threadIdx.x];
-        // channels 0-5 keep their row, the four colors go to rows 8-11
-        if (a != 0.0f) atomicAdd(d + (c < 6 ? c : c + 2) * stride, a);
+        for (int c = 0; c < kChannels; ++c) {
+          const float a = acc[c][threadIdx.x];
+          // dquad lanes 0-5, then dcolor
+          if (a != 0.0f) atomicAdd(c < 6 ? dq + c : dc + (c - 6), a);
+        }
+      } else {
+        float* d = drows + begin + k;
+#pragma unroll
+        for (int c = 0; c < kChannels; ++c) {
+          const float a = acc[c][threadIdx.x];
+          // channels 0-5 keep their row, the four colors go to rows 8-11
+          if (a != 0.0f) atomicAdd(d + (c < 6 ? c : c + 2) * stride, a);
+        }
       }
     }
   }
 }
 
-// Both kernels: 4 blocks an SM (64 registers for the pair-major one, no
+// All three kernels: 4 blocks an SM (64 registers for the pair-major one, no
 // spills) measured 6-7% faster than 3 for it on an H100
 __global__ void __launch_bounds__(kBlock, 4)
 composite_tiles_bwd_cm_kernel(const float* __restrict__ win, const int* __restrict__ counts,
@@ -212,9 +283,10 @@ composite_tiles_bwd_cm_kernel(const float* __restrict__ win, const int* __restri
   const int blk = blockIdx.x - t * nb;
   const long long tile = (long long)t * 5 * th * tw;
   // tile t's window and its gradient: channel c of row k at [t * 12 K + c K + k]
-  composite_pairs_range_bwd(win + (long long)t * 12 * K, K, blk, 0, min(counts[t], K),
-                            origins[2 * t], origins[2 * t + 1], th, tw, bg, full + tile,
-                            g_full + tile, dwin + (long long)t * 12 * K);
+  composite_pairs_range_bwd<false>(win + (long long)t * 12 * K, nullptr, K, blk, 0,
+                                   min(counts[t], K), origins[2 * t], origins[2 * t + 1], th, tw,
+                                   bg, full + tile, g_full + tile, nullptr, nullptr,
+                                   dwin + (long long)t * 12 * K, nullptr);
 }
 
 __global__ void __launch_bounds__(kBlock, 4)
@@ -229,9 +301,29 @@ composite_pairs_bwd_rg_kernel(const float* __restrict__ rows, const int* __restr
   const float ox = (float)((t % nx) * tw);
   const float oy = (float)((t / nx) * th) + oy_off;
   const long long tile = (long long)t * 5 * th * tw;
-  composite_pairs_range_bwd(rows, Pa, blk, (long long)slot_start[t] * chunk,
-                            slot_count[t] * chunk, ox, oy, th, tw, bg, full + tile,
-                            g_full + tile, drows);
+  composite_pairs_range_bwd<false>(rows, nullptr, Pa, blk, (long long)slot_start[t] * chunk,
+                                   slot_count[t] * chunk, ox, oy, th, tw, bg, full + tile,
+                                   g_full + tile, nullptr, nullptr, drows, nullptr);
+}
+
+// the first min(counts[t], K) packed rows of tile t: quad (T, K, 8), color
+// (T, K, 4), the forward's accum (T, P, 4) and tfinal (T, P, 1) and their
+// cotangents -> dquad (T, K, 8), dcolor (T, K, 4)
+__global__ void __launch_bounds__(kBlock, 4)
+composite_tiles_bwd_v2_kernel(const float* __restrict__ quad, const float* __restrict__ color,
+                              const int* __restrict__ counts, const float* __restrict__ g_accum,
+                              const float* __restrict__ g_tfinal, const float* __restrict__ accum,
+                              const float* __restrict__ tfinal, float* __restrict__ dquad,
+                              float* __restrict__ dcolor, int K, int th, int tw) {
+  const int nb = pair_blocks(th, tw);
+  const int t = blockIdx.x / nb;
+  const int blk = blockIdx.x - t * nb;
+  const long long P = (long long)th * tw;
+  const long long rows8 = (long long)t * K * 8, rows4 = (long long)t * K * 4;
+  composite_pairs_range_bwd<true>(quad + rows8, color + rows4, 0, blk, 0, min(counts[t], K),
+                                  0.0f, 0.0f, th, tw, nullptr, accum + t * P * 4,
+                                  g_accum + t * P * 4, tfinal + t * P, g_tfinal + t * P,
+                                  dquad + rows8, dcolor + rows4);
 }
 
 }  // namespace
@@ -260,6 +352,21 @@ int composite_pairs_bwd_rg(const float* rows, const int* slot_start, const int* 
   const dim3 grid(T * pair_blocks(th, tw));
   composite_pairs_bwd_rg_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       rows, slot_start, slot_count, bg, oy_off, full, g_full, drows, Pa, chunk, th, tw, nx);
+  return (int)cudaGetLastError();
+}
+
+// quad (T, K, 8) f32 packed rows; color (T, K, 4) f32; counts (T,) i32;
+// g_accum, accum (T, th*tw, 4) f32; g_tfinal, tfinal (T, th*tw, 1) f32: the
+// cotangents and the forward's own outputs. dquad (T, K, 8), dcolor (T, K, 4)
+// f32, zeroed by the caller: dead slots and lanes 6-7 stay zero. quad, color,
+// g_accum, accum, dquad and dcolor 16-byte aligned.
+int composite_tiles_bwd_v2(const float* quad, const float* color, const int* counts,
+                           const float* g_accum, const float* g_tfinal, const float* accum,
+                           const float* tfinal, float* dquad, float* dcolor, int T, int K, int th,
+                           int tw, void* stream) {
+  const dim3 grid(T * pair_blocks(th, tw));
+  composite_tiles_bwd_v2_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      quad, color, counts, g_accum, g_tfinal, accum, tfinal, dquad, dcolor, K, th, tw);
   return (int)cudaGetLastError();
 }
 

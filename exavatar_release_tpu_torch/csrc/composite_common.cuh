@@ -18,6 +18,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace composite {
 
 constexpr int kBlock = 256;  // pixels of a block, and rows of a staged batch
@@ -28,8 +30,8 @@ constexpr float kAlphaMin = (float)(1.0 / 255.0);
 constexpr float kAlphaMax = (float)0.99;
 constexpr float kTermEps = (float)1e-4;
 
-// The row-major kernels (composite_rm.cu) stage rows as s[.][j] and test
-// them with the two functions below and reaches_packed.
+// Kernels 5 and 6 and their stage probes (composite_rm.cu) stage rows as
+// s[.][j] and test them with the two functions below and reaches_packed.
 //
 // Staged Gaussian j at pixel (px, py), in the direct conic form:
 //   q = log_op - 0.5 (A dx^2 + C dy^2) - B dx dy,  dx = px - gx, dy = py - gy
@@ -72,9 +74,11 @@ __device__ __forceinline__ float clamped(float alpha_un) { return fminf(alpha_un
 __device__ __forceinline__ bool ends_pixel(float test_T) { return test_T < kTermEps; }
 
 // ---------------------------------------------------------------------------
-// The schedule of the channel-major kernels, dense and pair-major
-// (composite_tiles_{fwd,bwd}_cm, composite_pairs_{fwd,bwd}_rg: one body each
-// for the forward and the backward). The row-major kernels use nothing below.
+// The schedule of the pair bodies (composite.cu composite_pairs_range,
+// composite_bwd.cu composite_pairs_range_bwd): one body each way for six
+// kernels, the dense and the pair-major channel-major kernels (1, 2, 7, 8:
+// conic rows in global pixel coordinates) and the kernel_v=2 row-major
+// kernels (3, 4: packed tile-local rows). Kernels 5 and 6 use nothing below.
 //
 // A thread owns kPairsR = 2 pixels, a column of two; a warp's 8 x 4 lanes
 // own a patch of kPatchW x kPatchH = 8 x 8 pixels, and patches are numbered
@@ -133,14 +137,20 @@ __device__ __forceinline__ float4 pixel_box(float A, float B, float C, float gx,
   return make_float4(gx - ex, gx + ex, gy - ey, gy + ey);
 }
 
-// A batch of kBlock rows staged for the pair-major kernels, as vectors that
-// one broadcast LDS reads for both pixels of a thread.
-struct PairRows {
-  float4 box[kBlock];  // pixel_box
-  float4 abcx[kBlock];  // A, B, C, gx
+// A batch of kBlock rows staged for the pair bodies, as vectors that one
+// broadcast LDS reads for both pixels of a thread. Conic rows keep hi as a
+// float2, packed rows as a float4.
+template <class Hi>
+struct StagedRows {
+  float4 box[kBlock];  // pixel_box / packed_pixel_box
+  float4 lo[kBlock];  // conic: A, B, C, gx; packed: c0, c1, c2, c3
   float4 col[kBlock];  // r, g, b, depth
-  float2 ylo[kBlock];  // gy, log_op
+  Hi hi[kBlock];  // conic: gy, log_op; packed: c4, c5, log_op, 0
 };
+using PairRows = StagedRows<float2>;
+using PackedRows = StagedRows<float4>;
+template <bool PACKED>
+using RowsOf = std::conditional_t<PACKED, PackedRows, PairRows>;
 
 // Thread x of the block stages row begin + k (k < n) of a channel-major row
 // table (channel c of row r at rows[c * stride + r]), with its box.
@@ -150,8 +160,8 @@ __device__ __forceinline__ void stage_pair_row(PairRows& s, const float* __restr
   const float* r = rows + begin + k;
   const float A = r[0], B = r[stride], C = r[2 * stride], gx = r[3 * stride];
   const float gy = r[4 * stride], log_op = r[5 * stride];
-  s.abcx[threadIdx.x] = make_float4(A, B, C, gx);
-  s.ylo[threadIdx.x] = make_float2(gy, log_op);
+  s.lo[threadIdx.x] = make_float4(A, B, C, gx);
+  s.hi[threadIdx.x] = make_float2(gy, log_op);
   s.col[threadIdx.x] = make_float4(r[8 * stride], r[9 * stride], r[10 * stride], r[11 * stride]);
   s.box[threadIdx.x] = pixel_box(A, B, C, gx, gy, log_op);
 }
@@ -159,7 +169,8 @@ __device__ __forceinline__ void stage_pair_row(PairRows& s, const float* __restr
 // The pixels of this thread and the patch of its warp (patch blk * kWarps +
 // warp, blk the block's index within its tile) in a th x tw tile at origin
 // (ox, oy): the column's first tile-local pixel (x, y) and the patch's
-// bounds [x0, x1, y0, y1] in global pixel coordinates.
+// bounds [x0, x1, y0, y1] in global pixel coordinates (tile-local for packed
+// rows, whose callers pass the origin (0, 0)).
 struct PairPixels {
   int x, y;
   float4 patch;
@@ -196,6 +207,84 @@ __device__ __forceinline__ bool reaches_gated(float A, float B, float C, float g
   if (q < kQGate) return false;
   alpha_un = expf(q);
   return (q <= log_op) && (alpha_un >= kAlphaMin);
+}
+
+// The same for a packed row held in registers (lo = c0..c3, hi = c4, c5,
+// log_op) at the tile-local pixel (lx, ly), with the pixel's basis xx = lx lx,
+// xy = lx ly, yy = ly ly: exact integers (at most 127^2 < 2^24), so computed
+// once they give reaches_packed's q bit for bit, summed in its order.
+__device__ __forceinline__ bool reaches_packed_gated(float4 lo, float4 hi, float lx, float ly,
+                                                     float xx, float xy, float yy,
+                                                     float& alpha_un) {
+  const float q = lo.x + lo.y * lx + lo.z * ly + lo.w * xx + hi.x * xy + hi.y * yy;
+  if (q < kQGate) return false;
+  alpha_un = expf(q);
+  return (q <= hi.z) && (alpha_un >= kAlphaMin);
+}
+
+// ---------------------------------------------------------------------------
+// The pixel box of a packed row, mirrored operation for operation by
+// ops/rasterizer/kernels.py:packed_row_pixel_box (which holds the
+// derivation). It bounds the packed q that reaches_packed_gated evaluates in
+// float32 at the pixels of a th x tw tile, not the conic the row was packed
+// from: the conic is recovered exactly (A = -2 c3, B = -c4, C = -2 c5), the
+// center m solves Q m = (c1, c2), the peak is q* = c0 + (c1 mx + c2 my) / 2,
+// and L = q* + ln 255 gets an absolute slack of kBoxPackSlack times the sum
+// of the terms' magnitudes at the tile's far corner (the float32 error of q
+// at any of its pixels) and at the center (the error of q*), plus the center's
+// error times |(c1, c2)|. The extents take pixel_box's k slack, 1/1024 and
+// one pixel, and the center's error. One reciprocal of det, not seven
+// divisions: they took kernel 3 from 64 to 70 registers and cost it 15% on
+// an H100 (PERF.md). Empty when log_op + ln 255 < 0 (no pixel
+// passes q <= log_op and the 1/255 floor together) or when the widened L <
+// 0; the whole plane where pixel_box gives up, and where A <= 0 (with det > 0
+// Q is then negative definite and q* a minimum).
+constexpr float kBoxPackSlack = (float)4e-6;
+
+// [xmin, xmax, ymin, ymax] in tile-local pixel coordinates
+__device__ __forceinline__ float4 packed_pixel_box(float4 lo, float4 hi, int th, int tw) {
+  const float inf = __int_as_float(0x7f800000);
+  const float c0 = lo.x, c1 = lo.y, c2 = lo.z, c3 = lo.w, c4 = hi.x, c5 = hi.y;
+  if (hi.z + kBoxLn255 < 0.0f) return make_float4(inf, -inf, inf, -inf);
+  const float A = -2.0f * c3, B = -c4, C = -2.0f * c5;
+  const float det = A * C - B * B;
+  const float inv = 1.0f / det;
+  const float k = (A * C) * inv;
+  const float mx = (C * c1 - B * c2) * inv;
+  const float my = (A * c2 - B * c1) * inv;
+  const float dmx = kBoxPackSlack * ((fabsf(C * c1) + fabsf(B * c2)) * inv + k * fabsf(mx));
+  const float dmy = kBoxPackSlack * ((fabsf(A * c2) + fabsf(B * c1)) * inv + k * fabsf(my));
+  const float qs = c0 + 0.5f * (c1 * mx + c2 * my);
+  const float fx = (float)(tw - 1), fy = (float)(th - 1);
+  const float far = fabsf(c0) + fabsf(c1) * fx + fabsf(c2) * fy + fabsf(c3) * (fx * fx) +
+                    fabsf(c4) * (fx * fy) + fabsf(c5) * (fy * fy);
+  const float peak = fabsf(c0) + fabsf(c1 * mx) + fabsf(c2 * my);
+  const float Lb = qs + kBoxLn255 + kBoxSlackAbs + kBoxPackSlack * (far + peak) +
+                   0.5f * (fabsf(c1) * dmx + fabsf(c2) * dmy);
+  if (!(A > 0.0f) || !(det > 0.0f) || !(k < kBoxMaxK) || !isfinite(Lb) || !isfinite(dmx) ||
+      !isfinite(dmy))
+    return make_float4(-inf, inf, -inf, inf);
+  if (Lb < 0.0f) return make_float4(inf, -inf, inf, -inf);
+  const float Lk = Lb * (1.0f + kBoxSlackK * k);
+  const float ex = sqrtf(2.0f * Lk * (C * inv)) * kBoxRel + kBoxPad + dmx;
+  const float ey = sqrtf(2.0f * Lk * (A * inv)) * kBoxRel + kBoxPad + dmy;
+  if (!isfinite(ex) || !isfinite(ey)) return make_float4(-inf, inf, -inf, inf);
+  return make_float4(mx - ex, mx + ex, my - ey, my + ey);
+}
+
+// Thread x of the block stages row k (k < n) of a tile's packed rows quad (K,
+// 8) = [c0..c5, log_op, 0] and colors (K, 4), three 16-byte loads, with its
+// box for a th x tw tile.
+__device__ __forceinline__ void stage_packed_row(PackedRows& s, const float* __restrict__ quad,
+                                                 const float* __restrict__ color, int k, int n,
+                                                 int th, int tw) {
+  if (k >= n) return;
+  const float4 lo = reinterpret_cast<const float4*>(quad)[2 * k];
+  const float4 hi = reinterpret_cast<const float4*>(quad)[2 * k + 1];
+  s.lo[threadIdx.x] = lo;
+  s.hi[threadIdx.x] = hi;
+  s.col[threadIdx.x] = reinterpret_cast<const float4*>(color)[k];
+  s.box[threadIdx.x] = packed_pixel_box(lo, hi, th, tw);
 }
 
 }  // namespace composite

@@ -1,13 +1,15 @@
-// Row-major tile compositing kernels for Hopper (sm_90a): forward and
-// backward of the 3DGS front-to-back alpha blend on (T, K, 8) coefficient
-// rows and (T, K, 4) color rows, one thread per pixel.
+// Row-major tile compositing kernels 5 and 6 for Hopper (sm_90a) and their
+// stage probes (kernels 9 and 10): forward and backward of the 3DGS
+// front-to-back alpha blend on (T, K, 8) coefficient rows and (T, K, 4) color
+// rows, one thread per pixel.
 //
-// Replaces four Pallas TPU kernels of
+// Replaces two Pallas TPU kernels of
 // exavatar_release_tpu/ops/rasterizer/pallas_kernels.py:
-//   composite_tiles_fwd_v2 / composite_tiles_bwd_v2   (pre-packed rows)
-//   composite_tiles_fwd    / composite_tiles_bwd      (pre-packed rows, or
-//                                                      global conic rows +
-//                                                      tile origins)
+//   composite_tiles_fwd / composite_tiles_bwd   (pre-packed rows, or global
+//                                                conic rows + tile origins)
+// and the stage probes of tools/kvariants.py (build_fwd, build_bwd). The
+// kernel_v=2 kernels composite_tiles_fwd_v2 / _bwd_v2 take the same packed
+// rows through the pair bodies of composite.cu and composite_bwd.cu.
 // Two kernels, each templated on LOCALIZE:
 //   LOCALIZE = false: rows are [c0, c1, c2, c3, c4, c5, log_op, 0] and
 //     q = c0 + c1 lx + c2 ly + c3 lx^2 + c4 lx ly + c5 ly^2 at the tile-local
@@ -19,7 +21,7 @@
 // a background, and tfinal (T, P, 1), the transmittance where the pixel
 // ended. The blend rules (1/255 floor, 0.99 clamp, sticky termination at
 // T (1 - alpha) < 1e-4 that excludes the Gaussian that triggers it) are
-// composite_common.cuh's, shared with the channel-major kernels. Slots at or
+// composite_common.cuh's, shared with the pair bodies. Slots at or
 // past min(count, K) are never read.
 //
 // Backward. Per pixel, A_p = g_accum . accum + g_tfinal tfinal is formed in
@@ -43,11 +45,11 @@
 // What is not carried over from the TPU kernels: the (T, K / chunk) grid
 // with block revisiting and scalar-prefetched counts (blocks here run in no
 // order; the walk over a tile's rows is a loop inside the block), the
-// triangular-matmul prefixes and their bf16 option, the VMEM cap, and the v2
-// backward's unwritten dead regions: the caller zeroes dquad and dcolor and
-// the kernel adds to live rows only.
+// triangular-matmul prefixes and their bf16 option, and the VMEM cap. The
+// caller zeroes dquad and dcolor and the kernel adds to live rows only.
 //
-// Design: that of composite.cu and composite_bwd.cu with a row-major load. A
+// Design: one pixel a thread, the design the pair bodies of composite.cu and
+// composite_bwd.cu replaced for kernels 1-4 (PERF.md). A
 // block owns 256 pixels of one tile and stages 256 rows at a time in shared
 // memory (three 16-byte loads per thread, transposed into 11 channel rows);
 // the backward reduces over pixels by warp shuffle, shared-memory atomics per
@@ -63,8 +65,7 @@
 // replace tools/kvariants.py:build_fwd / build_bwd: with LOCALIZE, one stage
 // stubbed or reformulated by `if constexpr` hooks (see "Stage probes"
 // below), to attribute the kernels' time to their stages. VARIANT = kBase,
-// the default, folds every hook away: it is kernels 3-6 themselves and the
-// only instantiation the main path launches.
+// the default, folds every hook away: it is kernels 5 and 6 themselves.
 
 #include "composite_common.cuh"
 
@@ -576,17 +577,10 @@ int launch_bwd(const float* quad, const float* color, const int* counts, const f
 
 extern "C" {
 
-// quad (T, K, 8) f32 packed rows; color (T, K, 4) f32; counts (T,) i32;
-// accum (T, th*tw, 4) f32; tfinal (T, th*tw, 1) f32. Every pointer 16-byte
-// aligned. Returns cudaGetLastError() after the launch.
-int composite_tiles_fwd_v2(const float* quad, const float* color, const int* counts,
-                           float* accum, float* tfinal, int T, int K, int th, int tw,
-                           void* stream) {
-  return launch_fwd<false>(quad, color, counts, nullptr, accum, tfinal, T, K, th, tw, stream);
-}
-
-// The same with optional origins (T, 2) f32: when given, quad holds global
-// conic rows; when null, packed rows as above.
+// quad (T, K, 8) f32: global conic rows when origins (T, 2) f32 are given,
+// packed rows [c0..c5, log_op, 0] when origins is null; color (T, K, 4) f32;
+// counts (T,) i32; accum (T, th*tw, 4) f32; tfinal (T, th*tw, 1) f32. Every
+// pointer 16-byte aligned. Returns cudaGetLastError() after the launch.
 int composite_tiles_fwd(const float* quad, const float* color, const int* counts,
                         const float* origins, float* accum, float* tfinal, int T, int K, int th,
                         int tw, void* stream) {
@@ -597,17 +591,8 @@ int composite_tiles_fwd(const float* quad, const float* color, const int* counts
 
 // g_accum, accum (T, th*tw, 4) f32; g_tfinal, tfinal (T, th*tw, 1) f32: the
 // cotangents and the forward's own outputs. dquad (T, K, 8), dcolor (T, K, 4)
-// f32, zeroed by the caller: dead slots and lanes 6-7 stay zero.
-int composite_tiles_bwd_v2(const float* quad, const float* color, const int* counts,
-                           const float* g_accum, const float* g_tfinal, const float* accum,
-                           const float* tfinal, float* dquad, float* dcolor, int T, int K, int th,
-                           int tw, void* stream) {
-  return launch_bwd<false>(quad, color, counts, nullptr, g_accum, g_tfinal, accum, tfinal, dquad,
-                           dcolor, T, K, th, tw, stream);
-}
-
-// The same with optional origins: when given, dquad comes in the global row
-// layout [dA, dB, dC, dgx, dgy, dlog_op, 0, 0].
+// f32, zeroed by the caller: dead slots and lanes 6-7 stay zero. With origins
+// dquad comes in the global row layout [dA, dB, dC, dgx, dgy, dlog_op, 0, 0].
 int composite_tiles_bwd(const float* quad, const float* color, const int* counts,
                         const float* origins, const float* g_accum, const float* g_tfinal,
                         const float* accum, const float* tfinal, float* dquad, float* dcolor,

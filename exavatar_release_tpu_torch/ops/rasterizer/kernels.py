@@ -8,9 +8,10 @@ the measuring kernels of the probe tools (the stage probes of
 tools/kvariants.py, the window build of tools/win_probe.py).
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor goes
-to the kernel (``csrc/composite.cu``, ``csrc/composite_bwd.cu``,
-``csrc/composite_rm.cu``, ``csrc/windows.cu``), or the wrapper raises. There is no fallback. Each wrapper counts its launches in
-``<wrapper>.launches``.
+to the kernel (``csrc/composite.cu``, ``csrc/composite_bwd.cu``: kernels 1-4
+and 7-8 on one body each way; ``csrc/composite_rm.cu``: kernels 5-6 and the
+stage probes; ``csrc/windows.cu``), or the wrapper raises. There is no
+fallback. Each wrapper counts its launches in ``<wrapper>.launches``.
 
 The backward functions return the cotangent of the rows from the saved
 output ``full`` and its cotangent ``g_full``, with renderCUDA's rule
@@ -371,8 +372,8 @@ def composite_pairs_bwd_rg_plain(rows, tid, flags, bg, oy_off: float, full, g_fu
 
 
 # --------------------------------------------------------------------------
-# the pair-major kernels' cull and exp gate, in Python for the tests and
-# chip_smoke.py (no kernel path calls these)
+# the pair bodies' cull and exp gate (kernels 1-4, 7 and 8), in Python for
+# the tests and chip_smoke.py (no kernel path calls these)
 # --------------------------------------------------------------------------
 
 # composite_common.cuh's kQGate: q below it skips without an exp, since
@@ -385,6 +386,8 @@ BOX_SLACK_K = 1e-5
 BOX_SLACK_ABS = 1e-5
 BOX_REL = 1.0 + 1.0 / 1024.0
 BOX_PAD = 1.0
+# packed_pixel_box's slack per unit of the terms' magnitudes
+BOX_PACK_SLACK = 4e-6
 
 
 def row_pixel_box(rows: torch.Tensor) -> torch.Tensor:
@@ -421,6 +424,80 @@ def row_pixel_box(rows: torch.Tensor) -> torch.Tensor:
     return torch.where(L < 0, torch.stack([inf, -inf, inf, -inf]), box)
 
 
+def packed_row_pixel_box(quad: torch.Tensor, tile_shape) -> torch.Tensor:
+    """The conservative pixel box of each packed row that
+    composite_common.cuh's ``packed_pixel_box`` stages beside it for a th x tw
+    tile, operation for operation in float32: quad (..., 8) [c0..c5, log_op,
+    0] -> (4, ...) [xmin, xmax, ymin, ymax] in tile-local pixel coordinates.
+
+    The kernel evaluates q = c0 + c1 lx + c2 ly + c3 lx^2 + c4 lx ly + c5 ly^2
+    left to right in float32 at the tile's pixels, lx in [0, tw - 1], ly in
+    [0, th - 1]; a pixel composites only where that q >= -5.5413 (the 1/255
+    floor, as in ``row_pixel_box``) and q <= log_op. The box bounds these
+    coefficients' own quadratic, not the conic they were packed from:
+
+    * The conic is exact in them: A = -2 c3, B = -c4, C = -2 c5 (a sign and a
+      power of two), so q = q* - 0.5 (l - m)^T Q (l - m) with Q = [[A, B], [B,
+      C]], the center m = Q^-1 (c1, c2) and the peak q* = c0 + (c1 mx + c2
+      my) / 2, in exact arithmetic on the float32 coefficients.
+    * Each of q's five sums and three products rounds once, so at a pixel the
+      float32 q is within 6 u (u = 2^-24) of the exact one times the sum of
+      its terms' magnitudes, at most ``far`` = |c0| + |c1| (tw-1) + |c2|
+      (th-1) + |c3| (tw-1)^2 + |c4| (tw-1)(th-1) + |c5| (th-1)^2 anywhere in the
+      tile. |c0| dominates it when the mean lies far from the tile's origin:
+      c0 holds -0.5 A gx^2 at the tile-local gx.
+    * m is computed with one reciprocal, inv = 1 / det (seven divisions
+      cost kernel 3 six registers and 15% of its time on an H100, PERF.md):
+      its float32 error is at most about 3 u (|C c1| + |B c2|) / det + 3 u k
+      |m| (k = AC / det; det itself is good to (2k + 1) u relative, inv and
+      the product add a rounding each), dmx below with a slack of 4e-6 = 67
+      u per unit in place of 3 u; q*'s error about 3 u ``peak`` (= |c0| +
+      |c1 mx| + |c2 my|) plus (|c1| dmx + |c2| dmy) / 2.
+    * So a pixel that composites lies in 0.5 (l - m)^T Q (l - m) <= Lb = q* +
+      ln 255 + 1e-5 + 4e-6 (far + peak) + (|c1| dmx + |c2| dmy) / 2, whose
+      extents from m are sqrt(2 Lb Sxx) and sqrt(2 Lb Syy) (Sxx = C / det,
+      Syy = A / det). Lb is widened by (1 + 1e-5 k) for the rounding of
+      C inv and A inv, the extents by 1/1024, one pixel and m's error.
+
+    4e-6 is 11 times the 6 u that q's rounding needs and 22 times the 3 u of
+    m's. The box is empty when log_op + ln 255 < 0 (no float32 q passes both
+    q <= log_op and the floor: the -1e9 padding rows) or when Lb < 0; the
+    whole plane (infinite), left to the per-pixel test, when Q is not
+    positive definite (A <= 0 or det <= 0: q* is then no peak), k >= 1e5,
+    or Lb, m's error or an extent is not finite. Pixels outside the tile are
+    never evaluated and the box says nothing about them."""
+    th, tw = tile_shape
+    c0, c1, c2, c3, c4, c5, log_op = (quad[..., c].float() for c in range(7))
+    inf = torch.full_like(c0, math.inf)
+    A, B, C = -2.0 * c3, -c4, -2.0 * c5
+    det = A * C - B * B
+    inv = 1.0 / det
+    k = (A * C) * inv
+    mx = (C * c1 - B * c2) * inv
+    my = (A * c2 - B * c1) * inv
+    dmx = BOX_PACK_SLACK * (((C * c1).abs() + (B * c2).abs()) * inv + k * mx.abs())
+    dmy = BOX_PACK_SLACK * (((A * c2).abs() + (B * c1).abs()) * inv + k * my.abs())
+    qs = c0 + 0.5 * (c1 * mx + c2 * my)
+    fx, fy = float(tw - 1), float(th - 1)
+    far = (c0.abs() + c1.abs() * fx + c2.abs() * fy + c3.abs() * (fx * fx)
+           + c4.abs() * (fx * fy) + c5.abs() * (fy * fy))
+    peak = c0.abs() + (c1 * mx).abs() + (c2 * my).abs()
+    Lb = (qs + BOX_LN255 + BOX_SLACK_ABS + BOX_PACK_SLACK * (far + peak)
+          + 0.5 * (c1.abs() * dmx + c2.abs() * dmy))
+    Lk = Lb * (1.0 + BOX_SLACK_K * k)
+    ex = torch.sqrt(2.0 * Lk * (C * inv)) * BOX_REL + BOX_PAD + dmx
+    ey = torch.sqrt(2.0 * Lk * (A * inv)) * BOX_REL + BOX_PAD + dmy
+    box = torch.stack([mx - ex, mx + ex, my - ey, my + ey])
+    whole = torch.stack([-inf, inf, -inf, inf])
+    empty = torch.stack([inf, -inf, inf, -inf])
+    box = torch.where(~torch.isfinite(ex) | ~torch.isfinite(ey), whole, box)
+    box = torch.where(Lb < 0, empty, box)
+    give_up = (~(A > 0) | ~(det > 0) | ~(k < BOX_MAX_K) | ~torch.isfinite(Lb)
+               | ~torch.isfinite(dmx) | ~torch.isfinite(dmy))
+    box = torch.where(give_up, whole, box)
+    return torch.where(log_op + BOX_LN255 < 0, empty, box)
+
+
 def bwd_row_errors(got: torch.Tensor, want: torch.Tensor,
                    row_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """A backward output against a reference, row by row: (max |got - want|,
@@ -444,22 +521,24 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("composite")
     lib.composite_tiles_fwd_cm.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-    lib.composite_tiles_fwd_cm.restype = _I
     lib.composite_pairs_fwd_rg.argtypes = [
         _P, _P, _P, _P, ctypes.c_float, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P,
     ]
-    lib.composite_pairs_fwd_rg.restype = _I
+    lib.composite_tiles_fwd_v2.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    for fn in (lib.composite_tiles_fwd_cm, lib.composite_pairs_fwd_rg, lib.composite_tiles_fwd_v2):
+        fn.restype = _I
     return lib
 
 
 def _lib_bwd() -> ctypes.CDLL:
     lib = cuda_build.load("composite_bwd")
     lib.composite_tiles_bwd_cm.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-    lib.composite_tiles_bwd_cm.restype = _I
     lib.composite_pairs_bwd_rg.argtypes = [
         _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P,
     ]
-    lib.composite_pairs_bwd_rg.restype = _I
+    lib.composite_tiles_bwd_v2.argtypes = [_P] * 9 + [_I, _I, _I, _I, _P]
+    for fn in (lib.composite_tiles_bwd_cm, lib.composite_pairs_bwd_rg, lib.composite_tiles_bwd_v2):
+        fn.restype = _I
     return lib
 
 
@@ -622,20 +701,19 @@ composite_pairs_bwd_rg.launches = 0
 
 
 # --------------------------------------------------------------------------
-# row-major kernels (csrc/composite_rm.cu)
+# row-major kernels: kernel_v=2 (3, 4) on the pair bodies of
+# csrc/composite.cu and csrc/composite_bwd.cu; 5, 6 and the stage probes in
+# csrc/composite_rm.cu
 # --------------------------------------------------------------------------
 
 
 def _lib_rm() -> ctypes.CDLL:
     lib = cuda_build.load("composite_rm")
-    lib.composite_tiles_fwd_v2.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
     lib.composite_tiles_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-    lib.composite_tiles_bwd_v2.argtypes = [_P] * 9 + [_I, _I, _I, _I, _P]
     lib.composite_tiles_bwd.argtypes = [_P] * 10 + [_I, _I, _I, _I, _P]
     lib.composite_rm_fwd_variant.argtypes = [_I] + lib.composite_tiles_fwd.argtypes
     lib.composite_rm_bwd_variant.argtypes = [_I] + lib.composite_tiles_bwd.argtypes
-    for fn in (lib.composite_tiles_fwd_v2, lib.composite_tiles_fwd, lib.composite_tiles_bwd_v2,
-               lib.composite_tiles_bwd, lib.composite_rm_fwd_variant,
+    for fn in (lib.composite_tiles_fwd, lib.composite_tiles_bwd, lib.composite_rm_fwd_variant,
                lib.composite_rm_bwd_variant):
         fn.restype = _I
     return lib
@@ -672,7 +750,7 @@ def _fwd_rm(wrapper, tile_quad, tile_color, tile_counts, tile_shape, tile_origin
     with torch.cuda.device(dev):
         origins = None if tile_origins is None else tile_origins.data_ptr()
         if wrapper is composite_tiles_fwd_v2:
-            rc = _lib_rm().composite_tiles_fwd_v2(*head, *tail)
+            rc = _lib().composite_tiles_fwd_v2(*head, *tail)
         elif variant is not None:
             rc = _lib_rm().composite_rm_fwd_variant(variant, *head, origins, *tail)
         else:
@@ -711,7 +789,7 @@ def _bwd_rm(wrapper, tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accu
     with torch.cuda.device(dev):
         origins = None if tile_origins is None else tile_origins.data_ptr()
         if wrapper is composite_tiles_bwd_v2:
-            rc = _lib_rm().composite_tiles_bwd_v2(*head, *tail)
+            rc = _lib_bwd().composite_tiles_bwd_v2(*head, *tail)
         elif variant is not None:
             rc = _lib_rm().composite_rm_bwd_variant(variant, *head, origins, *tail)
         else:

@@ -335,6 +335,57 @@ def test_rasterize_gradients_card_vs_cpu(dev, pair_major):
 # --------------------------------------------------------------------------
 
 
+def _v2_kernels_against_plain(dev, win, counts, origins, tile):
+    """Kernel 3 bit for bit and kernel 4 row by row against their plain
+    versions on dense windows packed at their tiles' origins
+    (``pack_tile_quads``); kernel 4's lanes 6-7 (in ``_worst_row``) and its
+    slots at or past each tile's count exactly zero. Returns the packed
+    rows, the counts and the plain version's visits per pixel."""
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    win, counts, origins = to(win), to(counts), to(origins)
+    _, packed, color = chip_smoke.rm_rows_from_windows(win, origins)
+    args = (packed, color, counts, tile)
+    accum, tfinal = kn.composite_tiles_fwd_v2(*args)
+    w_accum, w_tfinal, visits = kn.composite_rm_plain_with_visits(*args)
+    assert torch.equal(accum, w_accum) and torch.equal(tfinal, w_tfinal)
+    T, P = accum.shape[:2]
+    g = torch.Generator().manual_seed(7)
+    cot = (torch.randn(T, P, 4, generator=g).to(dev), torch.randn(T, P, 1, generator=g).to(dev))
+    bargs = (packed, color, counts, *cot, accum, tfinal, tile)
+    got = kn.composite_tiles_bwd_v2(*bargs)
+    want = kn.composite_tiles_bwd_v2_plain(*bargs)
+    assert _worst_row(torch.cat(got, dim=2), torch.cat(want, dim=2), 2) <= 1e-4
+    past = torch.arange(packed.shape[1], device=dev)[None, :] >= counts[:, None]
+    assert not got[0][past].any() and not got[1][past].any()
+    return packed, counts, visits
+
+
+@pytest.mark.parametrize("case", ["small", "edges", "counts", "truncated", "tile_20x36"])
+def test_v2_kernels_equal_plain_where_the_cull_bites(dev, case):
+    """Kernels 3 and 4 (``kernel_v=2``, the pair bodies on packed rows with
+    tile-local boxes) on the pair-major cases' windows, on counts above K
+    beside an empty tile, and on 20 x 36 tiles, not a multiple of the 8 x 8
+    patch."""
+    rng = np.random.default_rng(25)
+    tile = (20, 36) if case == "tile_20x36" else TILE
+    win, counts, origins = _pair_windows(rng, case if case in ("small", "edges", "counts")
+                                         else "small", tile=tile)
+    K = win.shape[2]
+    if case == "truncated":
+        counts[:] = [K + 1, 3 * K, K, 0, 300, K + 7]
+    packed, n, visits = _v2_kernels_against_plain(dev, win, counts, origins, tile)
+    # the packed cull does skip rows here: most (warp, row) pairs the warps reach
+    st = chip_smoke.pair_cull_stats(packed, n, None, tile, visits)
+    assert st.warp_rows_culled > st.warp_rows // 2
+
+
+def test_v2_kernels_past_65535_tiles(dev):
+    """Kernels 3 and 4's one-dimensional grid: 66,000 tiles of 8 x 8."""
+    win, counts, origins = _pair_windows(np.random.default_rng(26), "small", T=66_000, nx=300,
+                                         K=12, tile=(8, 8))
+    _v2_kernels_against_plain(dev, win, counts, origins, (8, 8))
+
+
 @pytest.fixture(scope="module")
 def rm_scene(scene):
     """The same windows row-major: global conic rows, their packed tile-local

@@ -1,11 +1,12 @@
-"""The channel-major kernels' schedule on the CPU (csrc/composite.cu
+"""The pair bodies' schedule on the CPU (csrc/composite.cu
 ``composite_pairs_range``, csrc/composite_bwd.cu ``composite_pairs_range_bwd``,
-the one body of the dense and the pair-major kernels): the per-warp row cull
-by ``kernels.row_pixel_box`` and the exp gate ``kernels.Q_GATE`` must change
-nothing, so the schedule's forward is the plain version's bit for bit and
-its backward the plain version's up to the order of its sums, on ragged and
-on dense windows. The kernels themselves run only on the card
-(tests/test_torch_cuda.py)."""
+the one body of the dense, the pair-major and the kernel_v=2 kernels): the
+per-warp row cull by ``kernels.row_pixel_box`` (conic rows) and
+``kernels.packed_row_pixel_box`` (packed rows) and the exp gate
+``kernels.Q_GATE`` must change nothing, so the schedule's forward is the
+plain version's bit for bit and its backward the plain version's up to the
+order of its sums, on ragged and dense windows and on packed rows. The
+kernels themselves run only on the card (tests/test_torch_cuda.py)."""
 import math
 import os.path as osp
 import re
@@ -178,7 +179,7 @@ def test_box_constants_match_the_kernel():
     c = _cuh_constants()
     assert {k: float(v) for k, v in c.items() if k.startswith("kBox")} == {
         "kBoxLn255": kn.BOX_LN255, "kBoxMaxK": kn.BOX_MAX_K, "kBoxSlackK": kn.BOX_SLACK_K,
-        "kBoxSlackAbs": kn.BOX_SLACK_ABS}
+        "kBoxSlackAbs": kn.BOX_SLACK_ABS, "kBoxPackSlack": kn.BOX_PACK_SLACK}
     assert float(torch.tensor(kn.BOX_LN255, dtype=torch.float32)) > LN255
     # the layout the schedule's mirror and chip_smoke.pair_cull_stats assume
     text = open(osp.join(REPO, "exavatar_release_tpu_torch", "csrc", "composite_common.cuh")).read()
@@ -187,6 +188,9 @@ def test_box_constants_match_the_kernel():
                                                           chip_smoke.LANES_H) in text
     assert "constexpr int kWarps = kBlock / 32;" in text and "constexpr int kBlock = 256;" in text
     assert chip_smoke.PAIR_WARPS == 256 // 32
+    assert "constexpr float kBoxRel = 1.0f + 1.0f / 1024.0f;" in text
+    assert "constexpr float kBoxPad = 1.0f;" in text
+    assert kn.BOX_REL == 1.0 + 1.0 / 1024.0 and kn.BOX_PAD == 1.0
 
 
 # --------------------------------------------------------------------------
@@ -232,42 +236,37 @@ def scene():
                 win=dwin, width=width, origins=dorig, idx=idx, visits=visits, tile=TILE)
 
 
-def _schedule(s, g_full=None):
-    """The kernels' schedule on windows (a tile's rows k < width): per row, the warp
-    patches its box misses skip it, and q < Q_GATE skips before the exp; the
-    blend and replay are ``_scan_forward``'s and ``_replay_backward``'s. With
-    ``g_full`` the replay's per-pixel values are summed as the kernel sums
+def _scan(n, tile, q_of, color_of, miss_all, back=None):
+    """The kernels' schedule over each tile's rows k < n: per row, the warp
+    patches whose cull ``miss_all`` (T, npatch, K) marks skip it, and q <
+    Q_GATE skips before the exp; the blend and replay are ``_scan_forward``'s
+    and ``_replay_backward``'s. ``q_of(k)`` gives (q, log_op, extra) at the
+    tile's pixels, ``color_of(k)`` the (T, 4) colors. With ``back`` = (g_acc,
+    A_p, grad_of), ``grad_of(dq, extra)`` the six (T, P) coefficient values
+    of each pixel, the replay's ten values are summed as the kernel sums
     them: a thread's two pixels in turn, then the warp's lanes by
-    __shfl_down_sync's tree, then the patches. Returns (out or dwin, number of
-    visits culled, number spared an exp by the gate)."""
-    win, n, origins, bg, tile = s["win"], s["width"].long(), s["origins"], s["bg"], s["tile"]
-    Tn, _, Kw = win.shape
+    __shfl_down_sync's tree, then the patches. Returns (acc (4, T, P), Tr)
+    or red (T, K, 10), then the number of visits culled and the number
+    spared an exp by the gate."""
+    Tn = n.shape[0]
     R = chip_smoke.PAIRS_R
     lay = chip_smoke.pair_layout(tile)
     P = tile[0] * tile[1]
-    px, py = kn._tile_pixels(Tn, tile, win.device, origins)
-    miss_all = chip_smoke.patch_misses(kn.row_pixel_box(win.permute(1, 0, 2)), lay.bounds, origins)
     acc = torch.zeros(4, Tn, P)
     Tr = torch.ones(Tn, P)
     done = torch.zeros(Tn, P, dtype=torch.bool)
     culled = gated = 0
-    if g_full is not None:
-        full = s["full"]
-        tfinal = 1.0 - full[:, 4]
-        g_acc = [g_full[:, c] for c in range(4)]
-        g_tf = bg[0] * g_full[:, 0] + bg[1] * g_full[:, 1] + bg[2] * g_full[:, 2] - g_full[:, 4]
-        A_p = (g_acc[0] * (full[:, 0] - bg[0] * tfinal) + g_acc[1] * (full[:, 1] - bg[1] * tfinal)
-               + g_acc[2] * (full[:, 2] - bg[2] * tfinal) + g_acc[3] * full[:, 3] + g_tf * tfinal)
+    if back is not None:
+        g_acc, A_p, grad_of = back
         Pr = torch.zeros(Tn, P)
-        dwin = torch.zeros(Tn, 12, Kw)
+        red = torch.zeros(Tn, miss_all.shape[2], 10)
         npatch = lay.bounds.shape[0]
         flat = (lay.patch * 32 + lay.lane) * R + lay.slot  # the pixel's place in the schedule
     for k in range(int(n.max())):
         live = (k < n)[:, None]
         active = live & ~done
         miss = miss_all[:, :, k][:, lay.patch]
-        row = win[:, :, k]
-        q, log_op, (A, B, C, dx, dy) = kn._conic_q(row, px, py)
+        q, log_op, extra = q_of(k)
         gate = q < kn.Q_GATE
         culled += int((active & miss).sum())
         gated += int((active & ~miss & gate).sum())
@@ -278,8 +277,8 @@ def _schedule(s, g_full=None):
         hit = valid & ~done
         alpha = torch.where(done, 0.0, alpha)
         w = alpha * Tr
-        col = row[:, 8:12]
-        if g_full is None:
+        col = color_of(k)
+        if back is None:
             acc = acc + w[None] * col.T[:, :, None]
         else:
             cg = (g_acc[0] * col[:, 0:1] + g_acc[1] * col[:, 1:2] + g_acc[2] * col[:, 2:3]
@@ -287,9 +286,7 @@ def _schedule(s, g_full=None):
             Pr = Pr + w * cg
             dalpha = Tr * cg - (A_p - Pr) / (1.0 - alpha)
             dq = torch.where(hit, dalpha * alpha_un, 0.0)
-            vals = torch.stack([-0.5 * (dx * dx) * dq, -(dx * dy) * dq, -0.5 * (dy * dy) * dq,
-                                (A * dx + B * dy) * dq, (B * dx + C * dy) * dq, dq]
-                               + [w * g for g in g_acc], dim=2)  # (T, P, 10)
+            vals = torch.stack(grad_of(dq, extra) + [w * g for g in g_acc], dim=2)  # (T, P, 10)
             v = torch.zeros(Tn, npatch * 32 * R, 10).index_copy_(1, flat, vals)
             v = v.reshape(Tn, npatch, 32, R, 10)
             t = v[:, :, :, 0]
@@ -297,15 +294,75 @@ def _schedule(s, g_full=None):
                 t = t + v[:, :, :, r]
             for off in (16, 8, 4, 2, 1):
                 t = torch.cat([t[:, :, :off] + t[:, :, off:2 * off], t[:, :, off:]], dim=2)
-            red = t[:, :, 0].sum(1)  # (T, 10)
-            dwin[:, 0:6, k] = red[:, 0:6]
-            dwin[:, 8:12, k] = red[:, 6:10]
+            red[:, k] = t[:, :, 0].sum(1)
         Tr = Tr * (1.0 - alpha)
-    if g_full is not None:
-        return dwin, culled, gated
-    out = torch.stack([acc[0] + Tr * bg[0], acc[1] + Tr * bg[1], acc[2] + Tr * bg[2], acc[3],
-                       1.0 - Tr], dim=1)
-    return out, culled, gated
+    if back is not None:
+        return red, culled, gated
+    return (acc, Tr), culled, gated
+
+
+def _schedule(s, g_full=None):
+    """``_scan`` on conic windows (a tile's rows k < width, the box in global
+    pixel coordinates at the tiles' origins). Returns (out or dwin, number
+    of visits culled, number spared an exp by the gate)."""
+    win, n, origins, bg, tile = s["win"], s["width"].long(), s["origins"], s["bg"], s["tile"]
+    Tn, _, Kw = win.shape
+    px, py = kn._tile_pixels(Tn, tile, win.device, origins)
+    lay = chip_smoke.pair_layout(tile)
+    miss_all = chip_smoke.patch_misses(kn.row_pixel_box(win.permute(1, 0, 2)), lay.bounds, origins)
+    q_of = lambda k: kn._conic_q(win[:, :, k], px, py)
+    color_of = lambda k: win[:, 8:12, k]
+    if g_full is None:
+        (acc, Tr), culled, gated = _scan(n, tile, q_of, color_of, miss_all)
+        out = torch.stack([acc[0] + Tr * bg[0], acc[1] + Tr * bg[1], acc[2] + Tr * bg[2], acc[3],
+                           1.0 - Tr], dim=1)
+        return out, culled, gated
+    full = s["full"]
+    tfinal = 1.0 - full[:, 4]
+    g_acc = [g_full[:, c] for c in range(4)]
+    g_tf = bg[0] * g_full[:, 0] + bg[1] * g_full[:, 1] + bg[2] * g_full[:, 2] - g_full[:, 4]
+    A_p = (g_acc[0] * (full[:, 0] - bg[0] * tfinal) + g_acc[1] * (full[:, 1] - bg[1] * tfinal)
+           + g_acc[2] * (full[:, 2] - bg[2] * tfinal) + g_acc[3] * full[:, 3] + g_tf * tfinal)
+
+    def grad_of(dq, extra):
+        A, B, C, dx, dy = extra
+        return [-0.5 * (dx * dx) * dq, -(dx * dy) * dq, -0.5 * (dy * dy) * dq,
+                (A * dx + B * dy) * dq, (B * dx + C * dy) * dq, dq]
+
+    red, culled, gated = _scan(n, tile, q_of, color_of, miss_all, (g_acc, A_p, grad_of))
+    dwin = torch.zeros(Tn, 12, Kw)
+    dwin[:, 0:6] = red[..., 0:6].permute(0, 2, 1)
+    dwin[:, 8:12] = red[..., 6:10].permute(0, 2, 1)
+    return dwin, culled, gated
+
+
+def _schedule_packed(quad, color, counts, tile, cot=None):
+    """``_scan`` on a tile's packed rows (T, K, 8), read up to min(count, K),
+    with the box and the patches in tile-local coordinates, as kernels 3 and
+    4 run it. cot = (g_accum, g_tfinal, accum, tfinal) for the backward.
+    Returns ((accum, tfinal) or (dquad, dcolor), visits culled, visits
+    spared an exp by the gate)."""
+    Tn, Kq, _ = quad.shape
+    n = torch.clamp(counts.long(), max=Kq)
+    lx, ly = kn._tile_pixels(Tn, tile, quad.device)
+    lay = chip_smoke.pair_layout(tile)
+    box = kn.packed_row_pixel_box(quad, tile)  # (4, T, K)
+    miss_all = chip_smoke.patch_misses(box, lay.bounds, torch.zeros(Tn, 2))
+    q_of = lambda k: kn._packed_q(quad[:, k], lx, ly)
+    color_of = lambda k: color[:, k]
+    if cot is None:
+        (acc, Tr), culled, gated = _scan(n, tile, q_of, color_of, miss_all)
+        return (acc.permute(1, 2, 0).contiguous(), Tr[:, :, None]), culled, gated
+    g_accum, g_tfinal, accum, tfinal = cot
+    g_acc = [g_accum[:, :, c] for c in range(4)]
+    A_p = (g_acc[0] * accum[:, :, 0] + g_acc[1] * accum[:, :, 1] + g_acc[2] * accum[:, :, 2]
+           + g_acc[3] * accum[:, :, 3] + g_tfinal[:, :, 0] * tfinal[:, :, 0])
+    basis = (lx, ly, lx * lx, lx * ly, ly * ly)
+    grad_of = lambda dq, _: [dq] + [dq * b for b in basis]
+    red, culled, gated = _scan(n, tile, q_of, color_of, miss_all, (g_acc, A_p, grad_of))
+    dquad = torch.zeros(Tn, Kq, 8)
+    dquad[..., 0:6] = red[..., 0:6]
+    return (dquad, red[..., 6:10].contiguous()), culled, gated
 
 
 def test_schedule_forward_is_the_plain_version(scene):
@@ -363,3 +420,233 @@ def test_schedule_on_dense_windows():
     assert float((err[used] / ref[used]).max()) <= 1e-6
     past = torch.arange(Kd)[None, :] >= counts[:, None]
     assert not want[:, 6:8].any() and not want.permute(0, 2, 1)[past].any()
+
+
+# --------------------------------------------------------------------------
+# (d) packed rows (kernels 3 and 4): the tile-local box and the schedule
+# --------------------------------------------------------------------------
+
+PACKED_TILES = [(32, 128), (20, 36)]
+
+
+def _packed_adversarial(rng, tile, n=800):
+    """Packed rows (4n + 240, 8) of a th x tw tile, each packed by the port's
+    ``pack_tile_quads`` at a tile origin of a 1920 x 1088 image, and their
+    conics' (sx, sy, rho, L = log_op + ln 255) in float64. Four families:
+    sigmas 0.3-300 px with correlations up to +-0.999; thin rotated ellipses
+    (major axis 1-300 px, minor 0.3-3 px, any angle: near-singular conics,
+    k up to ~1e6); small Gaussians (sigmas 0.3-1 px) near the tile's far
+    corner, whose |c0| is largest (-0.5 A gx^2 at gx ~ tw); and
+    ``_adversarial_rows``' 240 global rows packed at an origin near them.
+    The first three put their tile-local means up to one radius outside the
+    tile, log-opacities within 1e-4 of -ln 255 for a third of the rows, and
+    the ellipse's exact x or y extreme within 1e-3 px of a pixel for half
+    of them."""
+    from exavatar_release_tpu_torch.ops.rasterizer.preprocess import pack_tile_quads
+
+    th, tw = tile
+    sx = np.exp(rng.uniform(np.log(0.3), np.log(300.0), n))
+    sy = np.exp(rng.uniform(np.log(0.3), np.log(300.0), n))
+    rho = rng.uniform(-0.999, 0.999, n)
+    rho[:8] = [0.999, -0.999] * 4
+    big = np.exp(rng.uniform(0.0, np.log(300.0), n))
+    small = np.exp(rng.uniform(np.log(0.3), np.log(3.0), n))
+    ang = rng.uniform(0.0, np.pi, n)
+    c, s = np.cos(ang), np.sin(ang)
+    vxx, vyy = (big * c) ** 2 + (small * s) ** 2, (big * s) ** 2 + (small * c) ** 2
+    vxy = (big ** 2 - small ** 2) * s * c
+    sx = np.concatenate([sx, np.sqrt(vxx), rng.uniform(0.3, 1.0, 2 * n)])
+    sy = np.concatenate([sy, np.sqrt(vyy), rng.uniform(0.3, 1.0, 2 * n)])
+    rho = np.concatenate([rho, vxy / np.sqrt(vxx * vyy), rng.uniform(-0.9, 0.9, 2 * n)])
+    m = len(sx)
+    log_op = np.log(rng.uniform(1.0 / 255.0, 1.0, m))
+    near = rng.random(m) < 1.0 / 3.0
+    log_op[near] = -LN255 + rng.uniform(-1e-4, 1e-4, near.sum())
+    L = np.maximum(log_op + LN255, 0.0)
+    ex, ey = np.sqrt(2 * L) * sx, np.sqrt(2 * L) * sy
+    gx, gy = rng.uniform(-ex, tw - 1 + ex), rng.uniform(-ey, th - 1 + ey)
+    corner = np.arange(m) >= 2 * n  # the third family
+    gx[corner] = tw - 1 + rng.uniform(-1.0, 1.0, corner.sum()) * ex[corner]
+    gy[corner] = th - 1 + rng.uniform(-1.0, 1.0, corner.sum()) * ey[corner]
+    tangent = rng.random(m) < 0.5
+    side = rng.integers(0, 4, m)
+    d = rng.uniform(-1e-3, 1e-3, m)
+    for i in np.flatnonzero(tangent):
+        if side[i] < 2:
+            edge = gx[i] + (ex[i] if side[i] == 0 else -ex[i])
+            gx[i] += np.round(edge) - edge + d[i]
+        else:
+            edge = gy[i] + (ey[i] if side[i] == 2 else -ey[i])
+            gy[i] += np.round(edge) - edge + d[i]
+    ox = rng.integers(0, 1920 // tw, m) * tw
+    oy = rng.integers(0, 1088 // th, m) * th
+    cov_det = (sx * sy) ** 2 * (1 - rho ** 2)
+    z = np.zeros(m)
+    rows = np.stack([sy ** 2 / cov_det, -rho * sx * sy / cov_det, sx ** 2 / cov_det, gx + ox,
+                     gy + oy, log_op, z, z], 1)
+    origins = np.stack([ox, oy], 1)
+    # the 240 adversarial global rows, at an origin that puts each center
+    # within a radius of the tile
+    adv = _adversarial_rows(rng).T.astype(np.float64)
+    a_sx, a_sy = (np.sqrt(adv[:, 2 - 2 * i] / (adv[:, 0] * adv[:, 2] - adv[:, 1] ** 2))
+                  for i in (0, 1))
+    a_L = np.maximum(adv[:, 5] + LN255, 0.0)
+    a_ex, a_ey = np.sqrt(2 * a_L) * a_sx, np.sqrt(2 * a_L) * a_sy
+    a_o = np.round(adv[:, 3:5] - np.stack([rng.uniform(-a_ex, tw - 1 + a_ex),
+                                          rng.uniform(-a_ey, th - 1 + a_ey)], 1))
+    rows = np.concatenate([rows, adv[:, :8]])
+    origins = np.concatenate([origins, a_o])
+    quad = pack_tile_quads(torch.from_numpy(rows.astype(np.float32)),
+                           torch.from_numpy(origins.astype(np.float32)))
+    shape = (np.concatenate([sx, a_sx]), np.concatenate([sy, a_sy]),
+             np.concatenate([rho, -adv[:, 1] / np.sqrt(adv[:, 0] * adv[:, 2])]),
+             np.concatenate([log_op, adv[:, 5]]) + LN255)
+    return quad, shape
+
+
+def _composited_packed(quad, tile):
+    """The plain version's test of packed rows (n, 8) at every pixel of a
+    tile: q <= log_op and exp(q) >= 1/255, from ``_packed_q``'s float32 q
+    -> (n, P), and the pixels' tile-local (lx, ly) (1, P)."""
+    lx, ly = kn._tile_pixels(1, tile, "cpu")
+    q, log_op, _ = kn._packed_q(quad, lx, ly)
+    return (q <= log_op) & (torch.exp(q) >= kn.ALPHA_MIN), lx, ly
+
+
+@pytest.mark.parametrize("tile", PACKED_TILES)
+def test_packed_box_is_conservative(tile):
+    """Every pixel of the tile that composites a packed row lies in its
+    ``packed_row_pixel_box``: the pixels just outside a box (within 2 px,
+    hundreds of thousands of them) all skip the row. Also the -1e9 padding
+    rows (empty) and rows whose Q is not positive definite (the whole
+    plane; a negative-definite one would composite pixels far from its
+    q*)."""
+    quad, _ = _packed_adversarial(np.random.default_rng(7), tile)
+    pad = quad[:2].clone()
+    pad[:, 0] += -1e9
+    pad[:, 6] = -1e9
+    bad = quad[:4].clone()
+    bad[:, 3:6] = torch.tensor([[-0.5, -1.5, -0.5], [-0.5, -1.0, -0.5], [0.5, 0.0, 0.5],
+                                [0.5, 0.0, -0.5]])
+    bad[:, 0] = torch.tensor([-1.0, -1.0, -100.0, -1.0])
+    every = torch.cat([quad, pad, bad])
+    box = kn.packed_row_pixel_box(every, tile)
+    n = quad.shape[0]
+    assert torch.isinf(box[:, n + 2:]).all() and (box[0, n + 2:] < 0).all()
+    assert (box[0, n:n + 2] > box[1, n:n + 2]).all()
+    hit, lx, ly = _composited_packed(every, tile)
+    assert hit[n + 2 + 2].any()  # the negative-definite row does composite
+    b = box[:, :, None]
+    inside = (lx >= b[0]) & (lx <= b[1]) & (ly >= b[2]) & (ly <= b[3])
+    missed = hit & ~inside
+    assert not missed.any(), [(i, every[i].tolist(), box[:, i].tolist())
+                              for i in torch.nonzero(missed.any(1)).flatten()[:3].tolist()]
+    # the sample covers what it claims: boxes that cut the tile, pixels just
+    # outside them, empty boxes of near-threshold rows, rows that give up
+    near = ~inside & (lx >= b[0] - 2) & (lx <= b[1] + 2) & (ly >= b[2] - 2) & (ly <= b[3] + 2)
+    finite = torch.isfinite(box[0]) & (box[0] <= box[1])
+    cuts = finite & ((box[0] > 0) | (box[1] < tile[1] - 1) | (box[2] > 0) | (box[3] < tile[0] - 1))
+    assert int(near.sum()) > 50_000 and int(cuts.sum()) > 2_000 and int(hit.sum()) > 100_000
+    assert int((box[0, :n] > box[1, :n]).sum()) >= 100 and int(torch.isinf(box[0, :n]).sum()) >= 100
+
+
+@pytest.mark.parametrize("tile", PACKED_TILES)
+def test_packed_box_is_tight(tile):
+    """Not vacuous: for well-shaped rows (|rho| <= 0.8, sigmas >= 1 px, L =
+    log_op + ln 255 >= 1) the box's half-extents, less its one-pixel pad,
+    are at most 1.3 times the exact ellipse's (in float64 from the packed
+    coefficients themselves) and 1.01 times at the median, and its center
+    lies within 0.01 px of the exact one."""
+    quad, (sx, sy, rho, L) = _packed_adversarial(np.random.default_rng(8), tile)
+    box = kn.packed_row_pixel_box(quad, tile).double()
+    c = quad.double()
+    A, B, C = -2 * c[:, 3], -c[:, 4], -2 * c[:, 5]
+    det = A * C - B * B
+    mx, my = (C * c[:, 1] - B * c[:, 2]) / det, (A * c[:, 2] - B * c[:, 1]) / det
+    Ls = c[:, 0] + 0.5 * (c[:, 1] * mx + c[:, 2] * my) + LN255
+    ok = torch.from_numpy((np.abs(rho) <= 0.8) & (np.minimum(sx, sy) >= 1.0) & (L >= 1.0))
+    assert int(ok.sum()) >= 400 and bool(torch.isfinite(box[:, ok]).all())
+    ratio = torch.maximum(((box[1] - box[0]) / 2 - kn.BOX_PAD) / torch.sqrt(2 * Ls * C / det),
+                          ((box[3] - box[2]) / 2 - kn.BOX_PAD) / torch.sqrt(2 * Ls * A / det))[ok]
+    off = torch.maximum(((box[0] + box[1]) / 2 - mx).abs(), ((box[2] + box[3]) / 2 - my).abs())
+    assert float(ratio.max()) <= 1.3 and float(ratio.median()) <= 1.01
+    assert float(off[ok].max()) <= 0.01
+
+
+def _packed_windows(tile, T, K, seed, counts):
+    """Seeded windows (``chip_smoke.random_windows``) repacked at their
+    tiles' origins, the first counts replaced: (packed (T, K, 8), colors (T,
+    K, 4), counts)."""
+    win, cnt, origins = chip_smoke.random_windows(T, K, tile, 2, seed=seed, device="cpu")
+    cnt[:len(counts)] = torch.tensor(counts, dtype=torch.int32)
+    _, packed, color = chip_smoke.rm_rows_from_windows(win, origins)
+    return packed, color, cnt
+
+
+@pytest.mark.parametrize("case", ["random_32x128", "dense_20x36"])
+def test_packed_schedule_is_the_plain_version(case):
+    """Kernels 3 and 4's schedule (``_schedule_packed``: tile-local patches
+    and boxes, the gate, two pixels a thread, then the warp's shuffle tree)
+    on packed rows: the forward bit-equal to ``composite_tiles_fwd_v2_plain``,
+    the backward within 1e-6 of each row's largest value of
+    ``composite_tiles_bwd_v2_plain``, its lanes 6-7 and its slots at or past
+    min(count, K) zero. Tiles of K rows and of none; a count above K; a 20 x
+    36 tile, not a multiple of the 8 x 8 patch. The stats model
+    (``chip_smoke.pair_cull_stats`` without origins) counts the same cull."""
+    tile, K, counts = (((32, 128), 289, [289, 0]) if case == "random_32x128"
+                       else ((20, 36), 97, [97 + 40, 0]))
+    packed, color, cnt = _packed_windows(tile, 4, K, 5, counts)
+    (acc, tf), culled, gated = _schedule_packed(packed, color, cnt, tile)
+    want_acc, want_tf, visits = kn.composite_rm_plain_with_visits(packed, color, cnt, tile)
+    assert torch.equal(acc, want_acc) and torch.equal(tf, want_tf)
+    total = int(visits.sum())
+    assert culled > 0.2 * total and gated > 0
+    st = chip_smoke.pair_cull_stats(packed, cnt, None, tile, visits)
+    assert st.visits == total and st.visits_left == total - culled
+    assert 0 < st.warp_rows_culled < st.warp_rows
+    g = torch.Generator().manual_seed(6)
+    P = tile[0] * tile[1]
+    cot = (torch.randn(4, P, 4, generator=g), torch.randn(4, P, 1, generator=g), want_acc, want_tf)
+    (dq, dc), _, _ = _schedule_packed(packed, color, cnt, tile, cot)
+    wq, wc = kn.composite_tiles_bwd_v2_plain(packed, color, cnt, *cot, tile)
+    err, ref = kn.bwd_row_errors(torch.cat([dq, dc], 2), torch.cat([wq, wc], 2), 2)
+    used = [0, 1, 2, 3, 4, 5, 8, 9, 10, 11]
+    assert bool((ref[used] > 0).all())
+    assert float((err[used] / ref[used]).max()) <= 1e-6
+    past = torch.arange(K)[None, :] >= cnt[:, None]
+    assert not dq[..., 6:].any() and not wq[past].any() and not dq[past].any()
+    assert not dc[past].any()
+
+
+def test_packed_schedule_vs_pallas_interpret():
+    """At the smallest shape the JAX package's tests compare (4 tiles of 8 x
+    32, K = 256, the rows of tests/test_torch_rowmajor.py's fixture: opaque
+    Gaussians that clamp alpha and end pixels, garbage past tile 1's count)
+    the schedule's forward on rows packed by the JAX package's
+    ``pack_tile_quads`` against ``pallas_kernels.composite_tiles_fwd_v2`` in
+    interpret mode, at that file's tolerances (the Pallas kernel carries T
+    through log-space prefix products)."""
+    import jax.numpy as jnp
+
+    from exavatar_release_tpu.ops.rasterizer import pallas_kernels as pk
+    from exavatar_release_tpu.ops.rasterizer.preprocess import pack_tile_quads as j_pack
+    from torch_windows import windows
+
+    tile = (8, 32)
+    win, counts, origins = windows(np.random.default_rng(31), T=4, K=256, tile_shape=tile)
+    win[:, 5, ::9] = 0.0
+    win[:, 3, ::9] = np.round(win[:, 3, ::9]) + 0.25
+    win[:, 4, ::9] = np.round(win[:, 4, ::9]) + 0.25
+    rows_g = np.ascontiguousarray(win[:, :8].transpose(0, 2, 1))
+    color = np.ascontiguousarray(win[:, 8:].transpose(0, 2, 1))
+    packed = np.array(j_pack(jnp.asarray(rows_g), jnp.asarray(origins)[:, None, :]))
+    packed[1, int(counts[1]):] = 7.0  # never read
+    j_acc, j_tf = pk.composite_tiles_fwd_v2(jnp.asarray(packed), jnp.asarray(color),
+                                            jnp.asarray(counts), tile, chunk=128, interpret=True)
+    (acc, tf), culled, gated = _schedule_packed(torch.from_numpy(packed), torch.from_numpy(color),
+                                                torch.from_numpy(counts), tile)
+    assert culled > 0 and gated > 0
+    np.testing.assert_allclose(acc[..., :3].numpy(), np.asarray(j_acc)[..., :3], atol=1e-5)
+    np.testing.assert_allclose(acc[..., 3].numpy(), np.asarray(j_acc)[..., 3], atol=1e-4)
+    np.testing.assert_allclose(tf.numpy(), np.asarray(j_tf), atol=1e-5)
+    assert float(tf.min()) < 2e-4  # some pixels terminated
