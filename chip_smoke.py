@@ -13,11 +13,11 @@ the JAX package) and fails with a non-zero exit when any phase fails:
    the 1080p tiling (random cotangents for the backward; each of its ten used
    rows against that row's own largest value), and the forward kernels
    against each other on the same scene; the forward kernels bit for bit.
-   For the kernels on the pair bodies (1, 2, 7 and 8, and kernel_v=2's 3
-   and 4; one body each way) it prints, here, at the animate frame, at the
-   train render and (3, 4) at the trainer's windows, what their per-warp
-   row cull leaves (``pair_cull_stats``, a model of it), and after the
-   build their registers, shared memory and spills;
+   All eight run the pair bodies (one body each way); it prints, here, at
+   the animate frame, at the train render and (3-6) at the trainer's
+   windows, what their per-warp row cull leaves (``pair_cull_stats``, a
+   model of it), and after the build their registers, shared memory,
+   spills and stack frames;
 3. renders the golden scenes of ``tests/goldens`` through the dense and the
    pair-major path and compares outputs and input gradients with the
    frozen reference and with the same render on CPU tensors;
@@ -94,13 +94,14 @@ RM_BWD_KERNELS = ("composite_tiles_bwd_v2", "composite_tiles_bwd")
 # the measuring kernels of the probe tools
 PROBE_KERNELS = ("composite_tiles_fwd_variant", "composite_tiles_bwd_variant", "tile_windows")
 ALL_KERNELS = FWD_KERNELS + BWD_KERNELS + RM_FWD_KERNELS + RM_BWD_KERNELS + PROBE_KERNELS
-# kernels 1-4, 7 and 8 run the pair bodies of composite.cu / composite_bwd.cu
+# kernels 1-8 run the pair bodies of composite.cu / composite_bwd.cu, the
+# stage probes the one-pixel-a-thread templates of composite_rm.cu
 KERNEL_SOURCE = {k: "exavatar_release_tpu_torch/csrc/composite.cu"
-                 for k in FWD_KERNELS + RM_FWD_KERNELS[:1]}
+                 for k in FWD_KERNELS + RM_FWD_KERNELS}
 KERNEL_SOURCE.update({k: "exavatar_release_tpu_torch/csrc/composite_bwd.cu"
-                      for k in BWD_KERNELS + RM_BWD_KERNELS[:1]})
+                      for k in BWD_KERNELS + RM_BWD_KERNELS})
 KERNEL_SOURCE.update({k: "exavatar_release_tpu_torch/csrc/composite_rm.cu"
-                      for k in RM_FWD_KERNELS[1:] + RM_BWD_KERNELS[1:] + PROBE_KERNELS[:2]})
+                      for k in PROBE_KERNELS[:2]})
 KERNEL_SOURCE["tile_windows"] = "exavatar_release_tpu_torch/csrc/windows.cu"
 _PK = "exavatar_release_tpu/ops/rasterizer/pallas_kernels.py"
 REPLACES = {
@@ -334,8 +335,8 @@ def ragged_from_windows(win, counts, chunk: int):
 
 def ptxas_resources(lib: str, entry: str) -> dict:
     """{the groups of ``entry`` in a kernel's mangled name: (registers, shared
-    bytes, spill stores, spill loads)}, from ptxas's report in the build log
-    of library ``lib`` (empty off the card)."""
+    bytes, spill stores, spill loads, stack frame bytes)}, from ptxas's report
+    in the build log of library ``lib`` (empty off the card)."""
     import re
 
     from exavatar_release_tpu_torch import cuda_build
@@ -344,27 +345,28 @@ def ptxas_resources(lib: str, entry: str) -> dict:
         text = cuda_build.build_log(lib)
     except OSError:
         return {}
-    out, cur, spill = {}, None, (0, 0)
+    out, cur, frame = {}, None, (0, 0, 0)
     for line in text.splitlines():
         m = re.search(r"entry function '\S*" + entry, line)
         if m:
-            cur, spill = m.groups(), (0, 0)
+            cur, frame = m.groups(), (0, 0, 0)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
         if m and cur is not None:
-            spill = (int(m.group(1)), int(m.group(2)))
+            frame = (int(m.group(2)), int(m.group(3)), int(m.group(1)))
         m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
         if m and cur is not None:
-            out[cur] = (int(m.group(1)), int(m.group(2))) + spill
+            out[cur] = (int(m.group(1)), int(m.group(2))) + frame
             cur = None
     return out
 
 
 def pair_resources() -> dict:
-    """{kernel: (registers, shared bytes, spill stores, spill loads)} of
-    the kernels on the pair bodies: 1, 2, 7, 8 and kernel_v=2's 3 and 4."""
+    """{kernel: (registers, shared bytes, spill stores, spill loads, stack
+    frame bytes)} of the kernels on the pair bodies, 1-8."""
     out = {}
-    entry = r"(composite_(?:tiles_(?:fwd|bwd)_(?:cm|v2)|pairs_(?:fwd|bwd)_rg))_kernel"
+    entry = r"(composite_(?:tiles_(?:fwd|bwd)(?:_cm|_v2)?|pairs_(?:fwd|bwd)_rg))_kernel"
     for lib in ("composite", "composite_bwd"):
         for (name,), r in ptxas_resources(lib, entry).items():
             out[name] = r
@@ -377,7 +379,7 @@ PAIRS_R, LANES_W, LANES_H, PAIR_WARPS = 2, 8, 4, 8
 
 
 class PairLayout(NamedTuple):
-    """Where kernels 1-4, 7 and 8 put each pixel of a th x tw tile
+    """Where kernels 1-8 put each pixel of a th x tw tile
     (composite_common.cuh ``pair_pixels``). Per tile-local pixel i (P,):
     ``patch``, its warp's patch (block * PAIR_WARPS + warp of the block),
     ``lane`` and ``slot`` (0..PAIRS_R-1 within the thread's column);
@@ -419,8 +421,8 @@ def patch_misses(box, bounds, origins):
 
 
 class CullStats(NamedTuple):
-    """What the per-warp row cull of the pair bodies (kernels 1-4, 7, 8)
-    leaves to do."""
+    """What the per-warp row cull of the pair bodies (kernels 1-8) leaves
+    to do."""
 
     visits: int  # (pixel, row) visits of the plain version, trigger included
     visits_left: int  # of those, the ones whose row the pixel's warp does not cull
@@ -430,8 +432,9 @@ class CullStats(NamedTuple):
 
 def pair_cull_stats(win, counts, origins, tile_shape, visits,
                     tiles_per_step: int = 32) -> CullStats:
-    """The cull's effect on dense windows (T, 12, K) at the tiles' origins,
-    or with ``origins`` None on packed rows (T, K, 8) in tile-local
+    """The cull's effect on dense windows (T, 12, K) at the tiles' origins
+    (or global conic rows (T, K, 8) transposed to (T, 8, K), kernels 5 and
+    6), or with ``origins`` None on packed rows (T, K, 8) in tile-local
     coordinates (kernels 3 and 4), from the plain version's visits (T, P)
     per pixel (``kernels.composite_plain_with_visits``,
     ``composite_rm_plain_with_visits``): a pixel evaluates rows k <
@@ -469,15 +472,16 @@ def pair_cull_stats(win, counts, origins, tile_shape, visits,
     return CullStats(*(int(v) for v in total))
 
 
-def pair_cull(tag: str, win, counts, origins, tile_shape, visits) -> None:
+def pair_cull(tag: str, win, counts, origins, tile_shape, visits, what=None) -> None:
     """Logs what the per-warp row cull leaves of a scene (its dense windows,
     or packed rows with ``origins`` None, and the plain version's visits per
     pixel): for windows the dense kernels' cull and the pair-major kernels',
     which run the same body on the same rows; for packed rows kernels 3 and
-    4's."""
+    4's. ``what`` names another reading of the same windows."""
     st = pair_cull_stats(win, counts, origins, tile_shape, visits)
-    what = ("kernel_v=2 packed cull (kernels 3 and 4, tile-local boxes)" if origins is None
-            else "dense cull (= the pair-major cull: the same rows, the same body)")
+    what = what or ("kernel_v=2 packed cull (kernels 3 and 4, tile-local boxes)"
+                    if origins is None
+                    else "dense cull (= the pair-major cull: the same rows, the same body)")
     log(f"[{tag}] {what}: plain visits {st.visits}, left after the cull "
         f"{st.visits_left} ({st.visits_left / max(1, st.visits):.4f}); (warp, row) pairs "
         f"reached {st.warp_rows}, culled {st.warp_rows_culled} "
@@ -548,7 +552,8 @@ def kernels_random_rm(win, counts, origins, bg, full_cm, tile_shape) -> dict:
     """The four row-major kernels on the same random windows, repacked:
     forward against the plain versions (TOL), kernel 5 with origins against
     the channel-major kernel's output (accum + tfinal bg against full),
-    kernel 3 against kernel 5 without origins bit for bit; backward under
+    kernel 3 against kernel 5 without origins (which runs kernel 3's body)
+    bit for bit; backward under
     random g_accum AND g_tfinal, row by row (GRAD_TOL), with exact zeros in
     lanes 6-7 and in slots at or past each tile's count."""
     import torch
@@ -594,6 +599,8 @@ def kernels_random_rm(win, counts, origins, bg, full_cm, tile_shape) -> dict:
         f"bit for bit: {same}")
     log(f"[kernels/random] composite_tiles_fwd_v2 == its plain version, bit for bit: "
         f"{torch.equal(f3[0], p3[0]) and torch.equal(f3[1], p3[1])}")
+    log(f"[kernels/random] composite_tiles_fwd with origins == its plain version, bit for bit: "
+        f"{torch.equal(f5o[0], p5o[0]) and torch.equal(f5o[1], p5o[1])}")
     pair_cull("kernels/random", packed, counts, None, tile_shape, visits3)
     for k, what in (("composite_tiles_bwd_v2", "packed rows"),
                     ("composite_tiles_bwd", "global rows + origins"),
@@ -1452,8 +1459,9 @@ def phase_train(device, steps=4, timing_iters=2, grow_to=1 << 16, start_kw=None,
                 + image[..., 4].mean() + image[..., 3].mean())
         return tuple(x.contiguous() for x in torch.autograd.grad(loss, (la, lt)))
 
-    # the row-major boundary with global rows and origins: the entry point of
-    # kernels 5 and 6, forward and backward, counted as a path of its own
+    # the row-major boundary without and with origins: kernels 5 and 6's
+    # wrappers (kernel 3 / 4's body without origins), forward and backward,
+    # counted as a path of its own
     reset_launches()
     for o in (None, origins):
         q = (packed if o is None else rows_g).clone().requires_grad_(True)
@@ -1481,10 +1489,15 @@ def phase_train(device, steps=4, timing_iters=2, grow_to=1 << 16, start_kw=None,
         plain_f_ms = 1e3 * (time.perf_counter() - t0)
         e_f = rm_max_err(got_f, (accum_p, tfinal_p))
         check(f"{fwd_name} vs plain (scene+human windows)", within(e_f, TOL), f"{e_f}")
-        if o is None:  # kernels 3 and 4: the packed cull, and whether 3 is exact here too
-            log(f"[train] {fwd_name} == its plain version, bit for bit: "
-                f"{torch.equal(got_f[0], accum_p) and torch.equal(got_f[1], tfinal_p)}")
+        # kernels 3 and 4, then 5 and 6: the cull, and whether the forward is
+        # exact here too
+        log(f"[train] {fwd_name} == its plain version, bit for bit: "
+            f"{torch.equal(got_f[0], accum_p) and torch.equal(got_f[1], tfinal_p)}")
+        if o is None:
             pair_cull("train", quad, counts, None, tile, visits)
+        else:
+            pair_cull("train", quad.transpose(1, 2), counts, o, tile, visits,
+                      "conic row-major cull (kernels 5 and 6, global boxes)")
         cot = cotangents(*got_f)
         got_b = bwd(quad, color, counts, *cot, *got_f, tile, *extra)
         sync()
@@ -1652,16 +1665,18 @@ def phase_probes(device, n=100_000, check_tiles=16, iters=10, win_inputs=None) -
     """``tools.kvariants`` and ``tools.win_probe`` as a user runs them, at
     their defaults: every variant against its plain version on the first
     ``check_tiles`` tiles (forward 1e-5 of each output's max, backward each
-    row against its own max, GRAD_TOL), base bit-equal to kernels 5 and 6
-    (the backward to atomics order, 1e-6 of each row), every exact variant
+    row against its own max, GRAD_TOL), base (the probes' one-pixel-a-thread
+    design) bit-equal to kernel 5 and within 1e-6 of each row of kernel 6
+    (the pair bodies: another order of summation), every exact variant
     within those limits of base; then, counters at 0 just before and read
-    just after, the tools' timing runs on the whole scene; the window kernel
-    integer for integer against the binning's gather, at the tool's seeded
-    inputs and on the scene's own binning; each variant's bound from its own
-    plain version's visits on the whole scene. Rows 9 and 10 of the kernels
-    line take the mean launch of the variants other than base, which is
-    kernel 5 / 6 itself and counts there. ``win_inputs`` (starts, rank_pad, K, n)
-    replaces the tool's seeded window inputs (a rehearsal at a small size)."""
+    just after, the tools' timing runs on the whole scene, kernels 5 and 6
+    timed beside base; the window kernel integer for integer against the
+    binning's gather, at the tool's seeded inputs and on the scene's own
+    binning; each variant's bound from its own plain version's visits on
+    the whole scene. Rows 9 and 10 of the kernels line take the mean launch
+    of all their variants, base included. ``win_inputs`` (starts, rank_pad,
+    K, n) replaces the tool's seeded window inputs (a rehearsal at a small
+    size)."""
     import torch
 
     from exavatar_release_tpu_torch.ops.rasterizer import binning as bnm
@@ -1721,7 +1736,8 @@ def phase_probes(device, n=100_000, check_tiles=16, iters=10, win_inputs=None) -
     base_b = kv.bwd("base", sub, cot, f5)
     r = rm_grad_rows(base_b, b6)
     check("bwd/base == composite_tiles_bwd with origins", r["max_row_rel_err"] <= 1e-6,
-          f"worst row {r['max_row_rel_err']:.3e} of its own max (atomics order; limit 1e-6)")
+          f"worst row {r['max_row_rel_err']:.3e} of its own max (order of summation: one "
+          f"pixel a thread against two, then the warp, and atomics; limit 1e-6)")
     for v in kn.BWD_VARIANTS:
         got = kv.bwd(v, sub, cot, f5)
         want = kv.bwd(v, sub, cot, f5, plain=True)
@@ -1805,12 +1821,11 @@ def phase_probes(device, n=100_000, check_tiles=16, iters=10, win_inputs=None) -
     mean = lambda xs: sum(xs) / len(xs)
     for d, times, name in (("fwd", fw, "composite_tiles_fwd_variant"),
                            ("bwd", bw, "composite_tiles_bwd_variant")):
-        # the row's own launches: base is kernel 5 / 6 and counts there
-        own = [v for v in times if v != "base"]
+        own = list(times)  # base is the probes' own design and counts here
         bounds = {v: bound(f"{d}/{v}") for v in times}
         res["kernel_stats"][name] = {
             "ms": mean([times[v] for v in own]),
-            "ms_of": f"mean per launch over the {len(own)} variants other than base",
+            "ms_of": f"mean per launch over the {len(own)} variants, base included",
             "plain_ms": mean([plain_ms[f"{d}/{v}"] for v in own]),
             "bound_ms": mean([bounds[v][0] for v in own]),
             "bound_by": bounds[own[0]][1],
@@ -1823,6 +1838,12 @@ def phase_probes(device, n=100_000, check_tiles=16, iters=10, win_inputs=None) -
         "max_abs_err": 0.0 if win["parity"] else math.inf}
     log(f"[probes] bytes bounds: forward {1e3 * f_bytes:.6f} ms, backward {1e3 * b_bytes:.6f} "
         f"ms; windows {1e3 * w_bytes:.6f} ms ({live_w} live entries of {wT} x {wK})")
+    res["product_ms"] = probe["product"]
+    for d, k in (("fwd", 5), ("bwd", 6)):
+        p_ms, b_ms = probe["product"][d], probe[d]["base"]
+        log(f"[probes] kernel {k} (the pair body) {p_ms:.4f} ms against the probes' base (one "
+            f"pixel a thread) {b_ms:.4f} ms on the whole scene: {p_ms / b_ms:.3f}x; bound "
+            f"{bound(f'{d}/base')[0]:.6f} ms")
     for d, times in (("fwd", fw), ("bwd", bw)):
         b_ms, b_work = times["base"], work[f"{d}/base"]
         for k, v in times.items():
@@ -2034,9 +2055,9 @@ def main() -> int:
         for line in cuda_build.build_log(lib).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {lib}: {line.strip()}")
-    for k, (regs, smem, st, ld) in pair_resources().items():
+    for k, (regs, smem, st, ld, frame) in pair_resources().items():
         log(f"[build] {k}: {regs} registers, {smem} bytes shared memory, spills {st} B stored / "
-            f"{ld} B loaded")
+            f"{ld} B loaded, {frame} B stack frame")
 
     # ``--phases a,b`` runs a part (random, goldens, animate, frame, train,
     # probes, apps) and
@@ -2102,7 +2123,7 @@ def main() -> int:
             if not fwd:  # the figure the backward kernels are held to (GRAD_TOL)
                 entry["max_row_rel_err"] = max(st["max_row_rel_err"],
                                                rnd[name]["max_row_rel_err"])
-        if name in pair_res:  # kernels 1-4, 7 and 8, from this run's build log
+        if name in pair_res:  # kernels 1-8, from this run's build log
             entry["registers_smem_spills"] = pair_res[name]
         kernels.append(entry)
     if not ok:

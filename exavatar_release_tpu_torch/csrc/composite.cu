@@ -1,11 +1,13 @@
 // Tile compositing kernels for Hopper (sm_90a): the forward of the 3DGS
 // rasterizer's front-to-back alpha blend.
 //
-// Replaces three Pallas TPU kernels of
+// Replaces four Pallas TPU kernels of
 // exavatar_release_tpu/ops/rasterizer/pallas_kernels.py:
 //   composite_tiles_fwd_cm   (dense (T, 12, K) depth-sorted windows)
 //   composite_pairs_fwd_rg   (ragged chunk-aligned (12, Pa) pair list)
 //   composite_tiles_fwd_v2   (kernel_v=2: packed (T, K, 8) rows, (T, K, 4) colors)
+//   composite_tiles_fwd      (global conic (T, K, 8) rows with tile origins;
+//                             without origins, packed rows: kernel_v=2's body)
 // All compute renderCUDA's rules, as jax_ref.py states them:
 //   q = log_op - 0.5 (A dx^2 + C dy^2) - B dx dy   (direct conic form), or
 //   q = c0 + c1 lx + c2 ly + c3 lx^2 + c4 lx ly + c5 ly^2 at the tile-local
@@ -13,7 +15,7 @@
 //   skip when q > log_op or exp(q) < 1/255;  alpha = min(0.99, exp(q))
 //   test_T = T (1 - alpha); test_T < 1e-4 ends the pixel, excluding the
 //   Gaussian that triggers it;  C += col alpha T;  T = test_T
-//   out = [rgb + bg T, depth, 1 - T]  (kernel_v=2: accum = C, NOT over a
+//   out = [rgb + bg T, depth, 1 - T]  (row-major rows: accum = C, NOT over a
 //   background, and tfinal = T)
 // T is a sequential f32 product, as in the plain PyTorch twin
 // (ops/rasterizer/kernels.py). The TPU kernels' log-space triangular-matmul
@@ -24,21 +26,24 @@
 // block.
 //
 // Bound: the work is ~13 f32 operations (one exp) per (pixel, Gaussian)
-// visit before termination, against 40 bytes per live row (48 packed) and
-// 20 per output pixel, so on this card the kernels are bound by operations
-// (PERF.md holds the bound and the measured times at the avatar's shapes).
+// visit before termination, against 40 bytes per live row (48 row-major)
+// and 20 per output pixel, so on this card the kernels are bound by
+// operations (PERF.md holds the bound and the measured times at the avatar's
+// shapes).
 //
-// Design, one body (composite_pairs_range) for the three kernels, templated
-// on PACKED: a block composites rows [begin, begin + n) of a row table into
-// its part of one tile, staging 256 rows at a time in shared memory. The
-// dense kernel hands it the tile's window (stride K, begin 0, n = min(count,
-// K)), the pair-major kernel the tile's slot range of the pair list, the
-// kernel_v=2 kernel the tile's packed rows (n = min(count, K), origin (0, 0):
-// its pixels, patches and boxes are tile-local). PACKED changes the staging
-// (three 16-byte loads a row), q and its box (packed_pixel_box), and the
-// output; the schedule is one. The body cuts the per-visit cost that is not
-// the blend's arithmetic: shared-memory reads, exps of Gaussians that are
-// skipped, and visits of Gaussians far from the pixels.
+// Design, one body (composite_pairs_range) for the four kernels, templated
+// on the row kind (composite_common.cuh RowKind): a block composites rows
+// [begin, begin + n) of a row table into its part of one tile, staging 256
+// rows at a time in shared memory. The dense kernel hands it the tile's
+// window (stride K, begin 0, n = min(count, K)), the pair-major kernel the
+// tile's slot range of the pair list, the row-major kernels a tile's rows
+// (n = min(count, K)): packed rows at origin (0, 0), whose pixels, patches
+// and boxes are tile-local, or global conic rows at the tile's origin. The
+// kind changes the staging (three 16-byte loads a row for row-major
+// tables), q and its box (pixel_box, packed_pixel_box), and the output; the
+// schedule is one. The body cuts the per-visit cost that is not the blend's
+// arithmetic: shared-memory reads, exps of Gaussians that are skipped, and
+// visits of Gaussians far from the pixels.
 // - A thread owns R = kPairsR = 2 pixels (a column of two), and a warp a
 //   compact patch (8 x 8 pixels): a block covers 512 pixels, so each row is
 //   staged 8 times per 32 x 128 tile, not 16 times. A visit reads the row
@@ -67,11 +72,11 @@ using namespace composite;
 
 // Composite rows [begin, begin + n) of a row table into the pixels of one
 // tile, kPairsR pixels a thread (pair_pixels, blk the block's index within
-// the tile). Conic rows: a channel-major table (stride), out_tile (5, P)
-// over the background bg. PACKED: a tile's packed rows (rows = quad (K, 8),
-// color (K, 4), begin 0, origin (0, 0)), out_tile = accum (P, 4) and tf_tile
-// = tfinal (P,).
-template <bool PACKED>
+// the tile). kConicCM: a channel-major table (stride), out_tile (5, P) over
+// the background bg. Row-major kinds: a tile's rows (rows = quad (K, 8),
+// color (K, 4), begin 0; packed rows at origin (0, 0)), out_tile = accum (P,
+// 4) and tf_tile = tfinal (P,).
+template <RowKind KIND>
 __device__ __forceinline__ void composite_pairs_range(const float* __restrict__ rows,
                                                      const float* __restrict__ color,
                                                      long long stride, int blk, long long begin,
@@ -80,7 +85,8 @@ __device__ __forceinline__ void composite_pairs_range(const float* __restrict__ 
                                                      float* __restrict__ out_tile,
                                                      float* __restrict__ tf_tile) {
   constexpr int R = kPairsR;
-  __shared__ RowsOf<PACKED> s;
+  constexpr bool PACKED = packed_q(KIND);
+  __shared__ RowsOf<KIND> s;
   const int P = th * tw;
   const PairPixels pp = pair_pixels(blk, tw, ox, oy);
   const float px = (float)pp.x + ox;
@@ -111,11 +117,7 @@ __device__ __forceinline__ void composite_pairs_range(const float* __restrict__ 
   for (int b = 0; b < n; b += kBlock) {
     // barrier before overwriting the batch; also the block's exit test
     if (__syncthreads_count(all_done) == kBlock) break;
-    if constexpr (PACKED) {
-      stage_packed_row(s, rows, color, b + threadIdx.x, n, th, tw);
-    } else {
-      stage_pair_row(s, rows, stride, begin, b + threadIdx.x, n);
-    }
+    stage_rows<KIND>(s, rows, color, stride, begin, b + threadIdx.x, n, th, tw);
     __syncthreads();
     const int m = min(kBlock, n - b);
     for (int j = 0; !all_done && j < m; ++j) {
@@ -157,7 +159,7 @@ __device__ __forceinline__ void composite_pairs_range(const float* __restrict__ 
     const int x = pp.x, y = pp.y + r;
     if (x >= tw || y >= th) continue;
     const int i = y * tw + x;
-    if constexpr (PACKED) {
+    if constexpr (row_major(KIND)) {
       reinterpret_cast<float4*>(out_tile)[i] = make_float4(c0[r], c1[r], c2[r], c3[r]);
       tf_tile[i] = T[r];
     } else {
@@ -178,9 +180,10 @@ composite_tiles_fwd_cm_kernel(const float* __restrict__ win, const int* __restri
   const int nb = pair_blocks(th, tw);
   const int t = blockIdx.x / nb;
   const int blk = blockIdx.x - t * nb;
-  composite_pairs_range<false>(win + (long long)t * 12 * K, nullptr, K, blk, 0,
-                               min(counts[t], K), origins[2 * t], origins[2 * t + 1], th, tw,
-                               bg, out + (long long)t * 5 * th * tw, nullptr);
+  composite_pairs_range<RowKind::kConicCM>(win + (long long)t * 12 * K, nullptr, K, blk, 0,
+                                           min(counts[t], K), origins[2 * t],
+                                           origins[2 * t + 1], th, tw, bg,
+                                           out + (long long)t * 5 * th * tw, nullptr);
 }
 
 __global__ void __launch_bounds__(kBlock, 2)
@@ -193,9 +196,10 @@ composite_pairs_fwd_rg_kernel(const float* __restrict__ rows, const int* __restr
   const int blk = blockIdx.x - t * nb;
   const float ox = (float)((t % nx) * tw);
   const float oy = (float)((t / nx) * th) + oy_off;
-  composite_pairs_range<false>(rows, nullptr, Pa, blk, (long long)slot_start[t] * chunk,
-                               slot_count[t] * chunk, ox, oy, th, tw, bg,
-                               out + (long long)t * 5 * th * tw, nullptr);
+  composite_pairs_range<RowKind::kConicCM>(rows, nullptr, Pa, blk,
+                                           (long long)slot_start[t] * chunk,
+                                           slot_count[t] * chunk, ox, oy, th, tw, bg,
+                                           out + (long long)t * 5 * th * tw, nullptr);
 }
 
 // the first min(counts[t], K) packed rows of tile t: quad (T, K, 8), color
@@ -208,9 +212,29 @@ composite_tiles_fwd_v2_kernel(const float* __restrict__ quad, const float* __res
   const int t = blockIdx.x / nb;
   const int blk = blockIdx.x - t * nb;
   const long long P = (long long)th * tw;
-  composite_pairs_range<true>(quad + (long long)t * K * 8, color + (long long)t * K * 4, 0, blk,
-                              0, min(counts[t], K), 0.0f, 0.0f, th, tw, nullptr,
-                              accum + t * P * 4, tfinal + t * P);
+  composite_pairs_range<RowKind::kPackedRM>(quad + (long long)t * K * 8,
+                                            color + (long long)t * K * 4, 0, blk, 0,
+                                            min(counts[t], K), 0.0f, 0.0f, th, tw, nullptr,
+                                            accum + t * P * 4, tfinal + t * P);
+}
+
+// the first min(counts[t], K) global conic rows of tile t at its origin
+// origins[t]: quad (T, K, 8), color (T, K, 4) -> accum (T, P, 4), tfinal
+// (T, P, 1). The origin is passed through, not rebuilt from the tile grid:
+// a caller may shift it (a band offset, half a pixel).
+__global__ void __launch_bounds__(kBlock, 2)
+composite_tiles_fwd_kernel(const float* __restrict__ quad, const float* __restrict__ color,
+                           const int* __restrict__ counts, const float* __restrict__ origins,
+                           float* __restrict__ accum, float* __restrict__ tfinal, int K, int th,
+                           int tw) {
+  const int nb = pair_blocks(th, tw);
+  const int t = blockIdx.x / nb;
+  const int blk = blockIdx.x - t * nb;
+  const long long P = (long long)th * tw;
+  composite_pairs_range<RowKind::kConicRM>(quad + (long long)t * K * 8,
+                                           color + (long long)t * K * 4, 0, blk, 0,
+                                           min(counts[t], K), origins[2 * t], origins[2 * t + 1],
+                                           th, tw, nullptr, accum + t * P * 4, tfinal + t * P);
 }
 
 }  // namespace
@@ -248,6 +272,22 @@ int composite_tiles_fwd_v2(const float* quad, const float* color, const int* cou
   const dim3 grid(T * pair_blocks(th, tw));
   composite_tiles_fwd_v2_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       quad, color, counts, accum, tfinal, K, th, tw);
+  return (int)cudaGetLastError();
+}
+
+// quad (T, K, 8) f32: global conic rows [A, B, C, gx, gy, log_op, _, _] when
+// origins (T, 2) f32 are given, packed rows [c0..c5, log_op, 0] when origins
+// is null (then composite_tiles_fwd_v2's kernel); color (T, K, 4) f32;
+// counts (T,) i32; accum (T, th*tw, 4) f32; tfinal (T, th*tw, 1) f32. quad,
+// color and accum 16-byte aligned.
+int composite_tiles_fwd(const float* quad, const float* color, const int* counts,
+                        const float* origins, float* accum, float* tfinal, int T, int K, int th,
+                        int tw, void* stream) {
+  if (origins == nullptr)
+    return composite_tiles_fwd_v2(quad, color, counts, accum, tfinal, T, K, th, tw, stream);
+  const dim3 grid(T * pair_blocks(th, tw));
+  composite_tiles_fwd_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      quad, color, counts, origins, accum, tfinal, K, th, tw);
   return (int)cudaGetLastError();
 }
 

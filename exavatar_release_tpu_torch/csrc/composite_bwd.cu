@@ -2,21 +2,25 @@
 // 3DGS rasterizer's front-to-back alpha blend with respect to the
 // depth-sorted rows.
 //
-// Replaces three Pallas TPU kernels of
+// Replaces four Pallas TPU kernels of
 // exavatar_release_tpu/ops/rasterizer/pallas_kernels.py:
 //   composite_tiles_bwd_cm   (dense (T, 12, K) windows   -> dwin  (T, 12, K))
 //   composite_pairs_bwd_rg   (ragged (12, Pa) pair list  -> drows (12, Pa))
 //   composite_tiles_bwd_v2   (kernel_v=2 packed (T, K, 8) rows and (T, K, 4)
 //                             colors -> dquad (T, K, 8), dcolor (T, K, 4))
+//   composite_tiles_bwd      (global conic (T, K, 8) rows with tile origins
+//                             -> dquad, dcolor; without origins, packed
+//                             rows: kernel_v=2's body)
 // Conic output rows are [dA, dB, dC, dgx, dgy, dlog_op, 0, 0, dr, dg, db,
-// ddepth]; packed ones [dc0..dc5, 0, 0] and [dr, dg, db, ddepth].
+// ddepth] (row-major: dquad [dA..dlog_op, 0, 0] and dcolor [dr, dg, db,
+// ddepth]); packed ones [dc0..dc5, 0, 0] and [dr, dg, db, ddepth].
 //
 // What is computed. Per pixel, from the forward's saved output and its
 // cotangent: for conic rows `full` and `g_full`,
 //   tfinal = 1 - full[4];  g_acc = g_full[0:4];
 //   g_tf = bg . g_full[0:3] - g_full[4];  accum_rgb = full[0:3] - bg tfinal;
 //   A_p = g_acc . accum + g_tf tfinal;
-// for packed rows A_p = g_accum . accum + g_tfinal tfinal from the two
+// for row-major rows A_p = g_accum . accum + g_tfinal tfinal from the two
 // cotangents and the forward's own accum and tfinal.
 // The forward is replayed front to back with the forward kernel's own rules
 // and arithmetic: both go through composite_common.cuh (the direct conic
@@ -39,11 +43,12 @@
 // The TPU kernels reach the conic gradient through a pixel-basis matmul and
 // a de-localisation; that was a device for the TPU's matrix unit.
 //
-// Design, one body (composite_pairs_range_bwd) for the three kernels,
-// templated on PACKED as the forward's: the dense kernel hands it a tile's
-// window (stride K, begin 0, n = min(count, K), the tile's dwin as output),
-// the pair-major kernel the tile's slot range of the pair list, the
-// kernel_v=2 kernel the tile's packed rows and its dquad and dcolor. The
+// Design, one body (composite_pairs_range_bwd) for the four kernels,
+// templated on the row kind as the forward's: the dense kernel hands it a
+// tile's window (stride K, begin 0, n = min(count, K), the tile's dwin as
+// output), the pair-major kernel the tile's slot range of the pair list, the
+// row-major kernels a tile's rows (packed at origin (0, 0), or global conic
+// rows at the tile's origin) and its dquad and dcolor. The
 // reduction over pixels has three levels: a warp sums its
 // pixels' ten gradient values with __shfl_down_sync, and only for rows that
 // some pixel of the warp hits (one ballot per row otherwise); lane 0 adds
@@ -53,8 +58,8 @@
 // arrive zeroed. Atomics make the order of summation differ from run to
 // run: the result agrees with the plain PyTorch version within float32
 // summation error, not bit for bit.
-// The time goes to the reduction over pixels (half of it in the probes of
-// kernel 6, which runs a one-pixel-a-thread loop): not to the instruction
+// The time goes to the reduction over pixels (half of it in the stage
+// probes' one-pixel-a-thread design, composite_rm.cu): not to the instruction
 // count of one reduction but to their number, one ballot, a five-deep
 // shuffle chain and a shared atomic per (warp, row) hit. So the body
 // reduces few times, with the forward's schedule (composite.cu): a thread
@@ -66,7 +71,7 @@
 // exact: the replay takes the forward's decisions.
 //
 // Bound: ~13 f32 operations per (pixel, Gaussian) visit plus ~37 per visit
-// that contributes, against 40 bytes per live row read (48 packed), 40 per
+// that contributes, against 40 bytes per live row read (48 row-major), 40 per
 // pixel read (full, g_full; accum, tfinal and their cotangents) and 40 (48)
 // per live row written: bound by operations at the avatar's shapes (PERF.md
 // holds the bound and the measured times).
@@ -85,12 +90,12 @@ constexpr unsigned kFullWarp = 0xffffffffu;
 
 // Gradient of rows [begin, begin + n) of a row table from the pixels of one
 // tile, kPairsR pixels a thread (pair_pixels, blk the block's index within
-// the tile). Conic rows: a channel-major table (stride), full_tile and
-// gfull_tile (5, P), drows in the table's layout. PACKED: a tile's packed
-// rows (rows = quad (K, 8), color (K, 4), begin 0, origin (0, 0)), full_tile
-// = accum (P, 4), gfull_tile = g_accum (P, 4), tf_tile = tfinal (P,),
-// gtf_tile = g_tfinal (P,), drows = dquad (K, 8), dcolor (K, 4).
-template <bool PACKED>
+// the tile). kConicCM: a channel-major table (stride), full_tile and
+// gfull_tile (5, P), drows in the table's layout. Row-major kinds: a tile's
+// rows (rows = quad (K, 8), color (K, 4), begin 0; packed rows at origin (0,
+// 0)), full_tile = accum (P, 4), gfull_tile = g_accum (P, 4), tf_tile =
+// tfinal (P,), gtf_tile = g_tfinal (P,), drows = dquad (K, 8), dcolor (K, 4).
+template <RowKind KIND>
 __device__ __forceinline__ void composite_pairs_range_bwd(
     const float* __restrict__ rows, const float* __restrict__ color, long long stride, int blk,
     long long begin, int n, float ox, float oy, int th, int tw, const float* __restrict__ bg,
@@ -98,7 +103,9 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
     const float* __restrict__ tf_tile, const float* __restrict__ gtf_tile,
     float* __restrict__ drows, float* __restrict__ dcolor) {
   constexpr int R = kPairsR;
-  __shared__ RowsOf<PACKED> s;
+  constexpr bool PACKED = packed_q(KIND);
+  constexpr bool RM = row_major(KIND);
+  __shared__ RowsOf<KIND> s;
   __shared__ float acc[kChannels][kBlock];
   // the warp's patch bounds, read with each row's box: kept in registers
   // they took the kernel to 72 registers and 3 blocks an SM
@@ -126,7 +133,7 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
   float g0[R], g1[R], g2[R], g3[R], A_p[R], T[R], prefix[R];
   bool all_done = true;
   float bg0 = 0.0f, bg1 = 0.0f, bg2 = 0.0f;
-  if constexpr (!PACKED) {
+  if constexpr (!RM) {
     bg0 = bg[0];
     bg1 = bg[1];
     bg2 = bg[2];
@@ -141,7 +148,7 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
     g0[r] = g1[r] = g2[r] = g3[r] = A_p[r] = 0.0f;
     if (done[r]) continue;
     const int i = y * tw + x;
-    if constexpr (PACKED) {
+    if constexpr (RM) {
       // the order of the plain version and of the TPU kernel's prologue
       const float4 g = reinterpret_cast<const float4*>(gfull_tile)[i];
       const float4 a = reinterpret_cast<const float4*>(full_tile)[i];
@@ -168,11 +175,7 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
     // barrier before overwriting the batch; also the block's exit test
     if (__syncthreads_count(all_done) == kBlock) break;
     const int k = b + threadIdx.x;
-    if constexpr (PACKED) {
-      stage_packed_row(s, rows, color, k, n, th, tw);
-    } else {
-      stage_pair_row(s, rows, stride, begin, k, n);
-    }
+    stage_rows<KIND>(s, rows, color, stride, begin, k, n, th, tw);
 #pragma unroll
     for (int c = 0; c < kChannels; ++c) acc[c][threadIdx.x] = 0.0f;
     __syncthreads();
@@ -249,7 +252,7 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
     }
     __syncthreads();
     if (k < n) {
-      if constexpr (PACKED) {
+      if constexpr (RM) {
         float* dq = drows + (long long)k * 8;
         float* dc = dcolor + (long long)k * 4;
 #pragma unroll
@@ -271,7 +274,7 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
   }
 }
 
-// All three kernels: 4 blocks an SM (64 registers for the pair-major one, no
+// All four kernels: 4 blocks an SM (64 registers for the pair-major one, no
 // spills) measured 6-7% faster than 3 for it on an H100
 __global__ void __launch_bounds__(kBlock, 4)
 composite_tiles_bwd_cm_kernel(const float* __restrict__ win, const int* __restrict__ counts,
@@ -283,10 +286,11 @@ composite_tiles_bwd_cm_kernel(const float* __restrict__ win, const int* __restri
   const int blk = blockIdx.x - t * nb;
   const long long tile = (long long)t * 5 * th * tw;
   // tile t's window and its gradient: channel c of row k at [t * 12 K + c K + k]
-  composite_pairs_range_bwd<false>(win + (long long)t * 12 * K, nullptr, K, blk, 0,
-                                   min(counts[t], K), origins[2 * t], origins[2 * t + 1], th, tw,
-                                   bg, full + tile, g_full + tile, nullptr, nullptr,
-                                   dwin + (long long)t * 12 * K, nullptr);
+  composite_pairs_range_bwd<RowKind::kConicCM>(win + (long long)t * 12 * K, nullptr, K, blk, 0,
+                                               min(counts[t], K), origins[2 * t],
+                                               origins[2 * t + 1], th, tw, bg, full + tile,
+                                               g_full + tile, nullptr, nullptr,
+                                               dwin + (long long)t * 12 * K, nullptr);
 }
 
 __global__ void __launch_bounds__(kBlock, 4)
@@ -301,9 +305,11 @@ composite_pairs_bwd_rg_kernel(const float* __restrict__ rows, const int* __restr
   const float ox = (float)((t % nx) * tw);
   const float oy = (float)((t / nx) * th) + oy_off;
   const long long tile = (long long)t * 5 * th * tw;
-  composite_pairs_range_bwd<false>(rows, nullptr, Pa, blk, (long long)slot_start[t] * chunk,
-                                   slot_count[t] * chunk, ox, oy, th, tw, bg, full + tile,
-                                   g_full + tile, nullptr, nullptr, drows, nullptr);
+  composite_pairs_range_bwd<RowKind::kConicCM>(rows, nullptr, Pa, blk,
+                                               (long long)slot_start[t] * chunk,
+                                               slot_count[t] * chunk, ox, oy, th, tw, bg,
+                                               full + tile, g_full + tile, nullptr, nullptr,
+                                               drows, nullptr);
 }
 
 // the first min(counts[t], K) packed rows of tile t: quad (T, K, 8), color
@@ -320,10 +326,36 @@ composite_tiles_bwd_v2_kernel(const float* __restrict__ quad, const float* __res
   const int blk = blockIdx.x - t * nb;
   const long long P = (long long)th * tw;
   const long long rows8 = (long long)t * K * 8, rows4 = (long long)t * K * 4;
-  composite_pairs_range_bwd<true>(quad + rows8, color + rows4, 0, blk, 0, min(counts[t], K),
-                                  0.0f, 0.0f, th, tw, nullptr, accum + t * P * 4,
-                                  g_accum + t * P * 4, tfinal + t * P, g_tfinal + t * P,
-                                  dquad + rows8, dcolor + rows4);
+  composite_pairs_range_bwd<RowKind::kPackedRM>(quad + rows8, color + rows4, 0, blk, 0,
+                                                min(counts[t], K), 0.0f, 0.0f, th, tw, nullptr,
+                                                accum + t * P * 4, g_accum + t * P * 4,
+                                                tfinal + t * P, g_tfinal + t * P, dquad + rows8,
+                                                dcolor + rows4);
+}
+
+// the first min(counts[t], K) global conic rows of tile t at its origin
+// origins[t] (passed through, not rebuilt from the tile grid): quad (T, K,
+// 8), color (T, K, 4), the forward's accum (T, P, 4) and tfinal (T, P, 1)
+// and their cotangents -> dquad (T, K, 8) [dA, dB, dC, dgx, dgy, dlog_op, 0,
+// 0], dcolor (T, K, 4)
+__global__ void __launch_bounds__(kBlock, 4)
+composite_tiles_bwd_kernel(const float* __restrict__ quad, const float* __restrict__ color,
+                           const int* __restrict__ counts, const float* __restrict__ origins,
+                           const float* __restrict__ g_accum, const float* __restrict__ g_tfinal,
+                           const float* __restrict__ accum, const float* __restrict__ tfinal,
+                           float* __restrict__ dquad, float* __restrict__ dcolor, int K, int th,
+                           int tw) {
+  const int nb = pair_blocks(th, tw);
+  const int t = blockIdx.x / nb;
+  const int blk = blockIdx.x - t * nb;
+  const long long P = (long long)th * tw;
+  const long long rows8 = (long long)t * K * 8, rows4 = (long long)t * K * 4;
+  composite_pairs_range_bwd<RowKind::kConicRM>(quad + rows8, color + rows4, 0, blk, 0,
+                                               min(counts[t], K), origins[2 * t],
+                                               origins[2 * t + 1], th, tw, nullptr,
+                                               accum + t * P * 4, g_accum + t * P * 4,
+                                               tfinal + t * P, g_tfinal + t * P, dquad + rows8,
+                                               dcolor + rows4);
 }
 
 }  // namespace
@@ -367,6 +399,23 @@ int composite_tiles_bwd_v2(const float* quad, const float* color, const int* cou
   const dim3 grid(T * pair_blocks(th, tw));
   composite_tiles_bwd_v2_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       quad, color, counts, g_accum, g_tfinal, accum, tfinal, dquad, dcolor, K, th, tw);
+  return (int)cudaGetLastError();
+}
+
+// quad (T, K, 8) f32: global conic rows when origins (T, 2) f32 are given,
+// packed rows when origins is null (then composite_tiles_bwd_v2's kernel);
+// the rest as composite_tiles_bwd_v2's. With origins dquad comes in the
+// global row layout [dA, dB, dC, dgx, dgy, dlog_op, 0, 0].
+int composite_tiles_bwd(const float* quad, const float* color, const int* counts,
+                        const float* origins, const float* g_accum, const float* g_tfinal,
+                        const float* accum, const float* tfinal, float* dquad, float* dcolor,
+                        int T, int K, int th, int tw, void* stream) {
+  if (origins == nullptr)
+    return composite_tiles_bwd_v2(quad, color, counts, g_accum, g_tfinal, accum, tfinal, dquad,
+                                  dcolor, T, K, th, tw, stream);
+  const dim3 grid(T * pair_blocks(th, tw));
+  composite_tiles_bwd_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      quad, color, counts, origins, g_accum, g_tfinal, accum, tfinal, dquad, dcolor, K, th, tw);
   return (int)cudaGetLastError();
 }
 

@@ -1,19 +1,22 @@
-// What the forward and the backward compositing kernels must share to the
-// last bit (composite.cu, composite_bwd.cu, composite_rm.cu): the block size, renderCUDA's
-// thresholds, the staging of rows in shared memory, and the skip, clamp
-// and termination rules of one Gaussian at one pixel. The backward replays the forward from its saved
-// output, and its `A_p - P_i` cancels only if both take the same skip and
-// termination decisions from the same arithmetic, so neither file spells
-// these out for itself.
+// What the compositing kernels must share to the last bit (composite.cu,
+// composite_bwd.cu and the stage probes of composite_rm.cu): the block size,
+// renderCUDA's thresholds, and the skip, clamp and termination rules of one
+// Gaussian at one pixel; then the schedule of the pair bodies that every
+// product kernel runs (kernels 1-8: the row tables they take, the staging of
+// rows in shared memory with their pixel boxes, the pixels of a thread and
+// the patch of its warp, the exp gate). The backward replays the forward
+// from its saved output, and its `A_p - P_i` cancels only if both take the
+// same skip and termination decisions from the same arithmetic, so neither
+// file spells these out for itself.
 //
 // Build with -fmad=false and without fast math: the thresholds turn
 // last-bit differences into skipped or kept Gaussians, and every operation
 // here rounds as the plain PyTorch version's does.
 //
-// The rules are three small functions and the callers keep the branches
-// (skip -> next Gaussian, end -> leave the loop). One function returning a
-// struct and a three-way code measured 16-27% slower in all four kernels on
-// an H100: most visits skip, and that path must stay one compare and a jump.
+// The rules are small functions and the callers keep the branches (skip ->
+// next Gaussian, end -> leave the loop). One function returning a struct and
+// a three-way code measured 16-27% slower in all four kernels on an H100:
+// most visits skip, and that path must stay one compare and a jump.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,8 +33,8 @@ constexpr float kAlphaMin = (float)(1.0 / 255.0);
 constexpr float kAlphaMax = (float)0.99;
 constexpr float kTermEps = (float)1e-4;
 
-// Kernels 5 and 6 and their stage probes (composite_rm.cu) stage rows as
-// s[.][j] and test them with the two functions below and reaches_packed.
+// The stage probes (composite_rm.cu) stage rows as s[.][j] and test them
+// with the two functions below.
 //
 // Staged Gaussian j at pixel (px, py), in the direct conic form:
 //   q = log_op - 0.5 (A dx^2 + C dy^2) - B dx dy,  dx = px - gx, dy = py - gy
@@ -53,19 +56,6 @@ __device__ __forceinline__ bool reaches(float (*s)[kBlock], int j, float px, flo
   return (q <= s[5][j]) && (alpha_un >= kAlphaMin);
 }
 
-// The same test for a row of pre-packed tile-local coefficients, staged as
-// s[.][j] = [c0, c1, c2, c3, c4, c5, r, g, b, depth, log_op], at the
-// tile-local pixel (lx, ly):
-//   q = c0 + c1 lx + c2 ly + c3 lx^2 + c4 lx ly + c5 ly^2
-// summed left to right, the order of the plain PyTorch version.
-__device__ __forceinline__ bool reaches_packed(float (*s)[kBlock], int j, float lx, float ly,
-                                               float& alpha_un) {
-  const float q = s[0][j] + s[1][j] * lx + s[2][j] * ly + s[3][j] * (lx * lx) +
-                  s[4][j] * (lx * ly) + s[5][j] * (ly * ly);
-  alpha_un = expf(q);
-  return (q <= s[10][j]) && (alpha_un >= kAlphaMin);
-}
-
 // alpha = min(0.99, exp(q))
 __device__ __forceinline__ float clamped(float alpha_un) { return fminf(alpha_un, kAlphaMax); }
 
@@ -75,10 +65,9 @@ __device__ __forceinline__ bool ends_pixel(float test_T) { return test_T < kTerm
 
 // ---------------------------------------------------------------------------
 // The schedule of the pair bodies (composite.cu composite_pairs_range,
-// composite_bwd.cu composite_pairs_range_bwd): one body each way for six
-// kernels, the dense and the pair-major channel-major kernels (1, 2, 7, 8:
-// conic rows in global pixel coordinates) and the kernel_v=2 row-major
-// kernels (3, 4: packed tile-local rows). Kernels 5 and 6 use nothing below.
+// composite_bwd.cu composite_pairs_range_bwd): one body each way for the
+// eight product kernels, on three kinds of row table (RowKind below). The
+// stage probes of composite_rm.cu use nothing below.
 //
 // A thread owns kPairsR = 2 pixels, a column of two; a warp's 8 x 4 lanes
 // own a patch of kPatchW x kPatchH = 8 x 8 pixels, and patches are numbered
@@ -137,6 +126,22 @@ __device__ __forceinline__ float4 pixel_box(float A, float B, float C, float gx,
   return make_float4(gx - ex, gx + ex, gy - ey, gy + ey);
 }
 
+// The row tables of the pair bodies. The kind fixes two things that vary
+// apart: the table's layout and the body's output (channel-major with the
+// (5, P) output over a background, or row-major (K, 8) rows and (K, 4)
+// colors with accum and tfinal), and the form of q (a direct conic at global
+// pixels, or packed coefficients at tile-local pixels).
+//   kConicCM   conic rows [A, B, C, gx, gy, log_op, _, _, r, g, b, depth] in
+//              a channel-major table: kernels 1, 2 (dense windows) and 7, 8
+//              (the pair list)
+//   kPackedRM  packed rows [c0..c5, log_op, 0] and colors, tile-local
+//              (origin (0, 0)): kernels 3 and 4 (kernel_v=2)
+//   kConicRM   global conic rows [A, B, C, gx, gy, log_op, _, _] and colors
+//              at the tile's origin: kernels 5 and 6
+enum class RowKind { kConicCM, kPackedRM, kConicRM };
+__host__ __device__ constexpr bool packed_q(RowKind k) { return k == RowKind::kPackedRM; }
+__host__ __device__ constexpr bool row_major(RowKind k) { return k != RowKind::kConicCM; }
+
 // A batch of kBlock rows staged for the pair bodies, as vectors that one
 // broadcast LDS reads for both pixels of a thread. Conic rows keep hi as a
 // float2, packed rows as a float4.
@@ -149,8 +154,8 @@ struct StagedRows {
 };
 using PairRows = StagedRows<float2>;
 using PackedRows = StagedRows<float4>;
-template <bool PACKED>
-using RowsOf = std::conditional_t<PACKED, PackedRows, PairRows>;
+template <RowKind KIND>
+using RowsOf = std::conditional_t<packed_q(KIND), PackedRows, PairRows>;
 
 // Thread x of the block stages row begin + k (k < n) of a channel-major row
 // table (channel c of row r at rows[c * stride + r]), with its box.
@@ -212,7 +217,8 @@ __device__ __forceinline__ bool reaches_gated(float A, float B, float C, float g
 // The same for a packed row held in registers (lo = c0..c3, hi = c4, c5,
 // log_op) at the tile-local pixel (lx, ly), with the pixel's basis xx = lx lx,
 // xy = lx ly, yy = ly ly: exact integers (at most 127^2 < 2^24), so computed
-// once they give reaches_packed's q bit for bit, summed in its order.
+// once they give the plain version's q (kernels.py _packed_q) bit for bit,
+// summed in its order.
 __device__ __forceinline__ bool reaches_packed_gated(float4 lo, float4 hi, float lx, float ly,
                                                      float xx, float xy, float yy,
                                                      float& alpha_un) {
@@ -285,6 +291,37 @@ __device__ __forceinline__ void stage_packed_row(PackedRows& s, const float* __r
   s.hi[threadIdx.x] = hi;
   s.col[threadIdx.x] = reinterpret_cast<const float4*>(color)[k];
   s.box[threadIdx.x] = packed_pixel_box(lo, hi, th, tw);
+}
+
+// Thread x of the block stages row k (k < n) of a tile's global conic rows
+// quad (K, 8) = [A, B, C, gx, gy, log_op, _, _] and colors (K, 4), three
+// 16-byte loads, as PairRows with its box in global pixel coordinates.
+__device__ __forceinline__ void stage_conic_rm_row(PairRows& s, const float* __restrict__ quad,
+                                                   const float* __restrict__ color, int k,
+                                                   int n) {
+  if (k >= n) return;
+  const float4 lo = reinterpret_cast<const float4*>(quad)[2 * k];
+  const float4 hi = reinterpret_cast<const float4*>(quad)[2 * k + 1];
+  s.lo[threadIdx.x] = lo;
+  s.hi[threadIdx.x] = make_float2(hi.x, hi.y);
+  s.col[threadIdx.x] = reinterpret_cast<const float4*>(color)[k];
+  s.box[threadIdx.x] = pixel_box(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y);
+}
+
+// Thread x stages row k (k < n) of the batch, as its row kind lays it out:
+// for kConicCM row begin + k of the channel-major table rows (stride), else
+// row k of a tile's rows (K, 8) and color (K, 4).
+template <RowKind KIND>
+__device__ __forceinline__ void stage_rows(RowsOf<KIND>& s, const float* __restrict__ rows,
+                                           const float* __restrict__ color, long long stride,
+                                           long long begin, int k, int n, int th, int tw) {
+  if constexpr (KIND == RowKind::kConicCM) {
+    stage_pair_row(s, rows, stride, begin, k, n);
+  } else if constexpr (KIND == RowKind::kPackedRM) {
+    stage_packed_row(s, rows, color, k, n, th, tw);
+  } else {
+    stage_conic_rm_row(s, rows, color, k, n);
+  }
 }
 
 }  // namespace composite

@@ -1,28 +1,23 @@
-// Row-major tile compositing kernels 5 and 6 for Hopper (sm_90a) and their
-// stage probes (kernels 9 and 10): forward and backward of the 3DGS
-// front-to-back alpha blend on (T, K, 8) coefficient rows and (T, K, 4) color
-// rows, one thread per pixel.
+// The stage probes of the row-major compositing kernels with origins
+// (kernels 9 and 10) for Hopper (sm_90a): instruments that attribute the
+// time of the one-pixel-a-thread design to its stages. They replace the
+// probes of tools/kvariants.py (build_fwd, build_bwd), which stub or
+// reformulate stages of the Pallas TPU kernels composite_tiles_fwd /
+// composite_tiles_bwd (exavatar_release_tpu/ops/rasterizer/pallas_kernels.py)
+// with tile origins. The product kernels 5 and 6 run the pair bodies of
+// composite.cu and composite_bwd.cu; the design here is the one those
+// bodies replaced (PERF.md), kept as the instrument's own base until the
+// probes are re-pointed at the pair bodies.
 //
-// Replaces two Pallas TPU kernels of
-// exavatar_release_tpu/ops/rasterizer/pallas_kernels.py:
-//   composite_tiles_fwd / composite_tiles_bwd   (pre-packed rows, or global
-//                                                conic rows + tile origins)
-// and the stage probes of tools/kvariants.py (build_fwd, build_bwd). The
-// kernel_v=2 kernels composite_tiles_fwd_v2 / _bwd_v2 take the same packed
-// rows through the pair bodies of composite.cu and composite_bwd.cu.
-// Two kernels, each templated on LOCALIZE:
-//   LOCALIZE = false: rows are [c0, c1, c2, c3, c4, c5, log_op, 0] and
-//     q = c0 + c1 lx + c2 ly + c3 lx^2 + c4 lx ly + c5 ly^2 at the tile-local
-//     pixel (lx, ly) = (i % tw, i / tw), summed in this order;
-//   LOCALIZE = true: rows are [A, B, C, gx, gy, log_op, _, _] in global pixel
-//     coordinates and q is the direct conic form of composite.cu at
-//     (lx + ox, ly + oy).
-// Both give accum (T, P, 4) = sum of w_i [r, g, b, depth], NOT composited over
-// a background, and tfinal (T, P, 1), the transmittance where the pixel
-// ended. The blend rules (1/255 floor, 0.99 clamp, sticky termination at
-// T (1 - alpha) < 1e-4 that excludes the Gaussian that triggers it) are
-// composite_common.cuh's, shared with the pair bodies. Slots at or
-// past min(count, K) are never read.
+// Two kernel templates, forward and backward, on global conic rows
+// [A, B, C, gx, gy, log_op, _, _] (T, K, 8) with tile origins (T, 2) and
+// colors (T, K, 4), q in the direct conic form at the pixel (lx + ox, ly +
+// oy), (lx, ly) = (i % tw, i / tw). The forward gives accum (T, P, 4) = sum
+// of w_i [r, g, b, depth], NOT composited over a background, and tfinal (T,
+// P, 1), the transmittance where the pixel ended. The blend rules (1/255
+// floor, 0.99 clamp, sticky termination at T (1 - alpha) < 1e-4 that excludes
+// the Gaussian that triggers it) are composite_common.cuh's, shared with the
+// pair bodies. Slots at or past min(count, K) are never read.
 //
 // Backward. Per pixel, A_p = g_accum . accum + g_tfinal tfinal is formed in
 // the prologue from the two cotangents and the forward's own outputs; the
@@ -30,42 +25,24 @@
 //   cg_i = g_accum . color_i;  P_i = sum_{j<=i} w_j cg_j
 //   dalpha_i = T_i cg_i - (A_p - P_i) / (1 - alpha_i);  dq_i = dalpha_i exp(q_i)
 // (unclamped d alpha / d q, also where alpha was clamped). Summed over the
-// tile's pixels: dcolor_i = sum w_i g_accum, and
-//   packed rows:  dquad = [sum dq, sum dq lx, sum dq ly, sum dq lx^2,
-//                          sum dq lx ly, sum dq ly^2, 0, 0]
-//                 (log_op is reached through c0 only: lanes 6, 7 stay zero);
-//   LOCALIZE:     dquad = [dA, dB, dC, dgx, dgy, dlog_op, 0, 0], each visit's
-//                 term taken directly from dx, dy as in composite_bwd.cu.
-// The TPU kernel gets the LOCALIZE gradient by summing the packed form and
-// applying the packing's transpose once per row. In float32 that transpose
-// cancels terms of size dq lx^2 against each other to leave dq dx^2 (lx up to
-// 128 pixels, dx a few): on an H100 it left dA 1.8e-4 of the row's largest
-// value away from the plain version. The direct terms have no cancellation.
+// tile's pixels: dcolor_i = sum w_i g_accum and dquad = [dA, dB, dC, dgx,
+// dgy, dlog_op, 0, 0], each visit's term taken directly from dx, dy as in
+// composite_bwd.cu. The caller zeroes dquad and dcolor and the kernel adds
+// to live rows only.
 //
-// What is not carried over from the TPU kernels: the (T, K / chunk) grid
-// with block revisiting and scalar-prefetched counts (blocks here run in no
-// order; the walk over a tile's rows is a loop inside the block), the
-// triangular-matmul prefixes and their bf16 option, and the VMEM cap. The
-// caller zeroes dquad and dcolor and the kernel adds to live rows only.
-//
-// Design: one pixel a thread, the design the pair bodies of composite.cu and
-// composite_bwd.cu replaced for kernels 1-4 (PERF.md). A
-// block owns 256 pixels of one tile and stages 256 rows at a time in shared
-// memory (three 16-byte loads per thread, transposed into 11 channel rows);
-// the backward reduces over pixels by warp shuffle, shared-memory atomics per
-// batch, then global atomics across the tile's blocks. Bound: ~13 f32
-// operations per (pixel, Gaussian) visit plus ~45 per contributing visit of
-// the backward, against 48 bytes per live row and 20 (forward) or 40
-// (backward) per pixel: bound by operations at the avatar's shapes (PERF.md
-// holds the bound and the measured times).
+// Design: one pixel a thread. A block owns 256 pixels of one tile (a (T,
+// ceil(P / 256)) grid) and stages 256 rows at a time in shared memory (three
+// 16-byte loads per thread, transposed into 11 channel rows); the backward
+// reduces over pixels by warp shuffle, shared-memory atomics per batch, then
+// global atomics across the tile's blocks.
 //
 // Build with -fmad=false and without fast math (see composite_common.cuh).
 //
-// Both kernels also take a compile-time VARIANT, the stage probes that
-// replace tools/kvariants.py:build_fwd / build_bwd: with LOCALIZE, one stage
-// stubbed or reformulated by `if constexpr` hooks (see "Stage probes"
-// below), to attribute the kernels' time to their stages. VARIANT = kBase,
-// the default, folds every hook away: it is kernels 5 and 6 themselves.
+// Both templates take <bool LOCALIZE, int VARIANT>. LOCALIZE is always true
+// here (it once also selected packed rows; the probes' mangled names keep
+// it). VARIANT stubs or reformulates one stage by `if constexpr` hooks (see
+// "Stage probes" below); VARIANT = kBase folds every hook away and is the
+// design itself, the base every probe delta is taken against.
 
 #include "composite_common.cuh"
 
@@ -74,7 +51,7 @@ namespace {
 using namespace composite;
 
 constexpr unsigned kFullWarp = 0xffffffffu;
-constexpr int kStaged = 11;  // 6 coefficients, 4 colors, log_op of packed rows
+constexpr int kStaged = 11;  // row lanes 0-5, 4 colors, row lane 6
 
 // Row k of a tile's (K, 8) and (K, 4) row tables, as three 16-byte loads.
 struct RowRM {
@@ -107,14 +84,15 @@ __device__ __forceinline__ void stage_row_rm(float (*s)[kBlock], const float* __
   store_row_rm(s, r, k, n);
 }
 
-// Staged Gaussian j at the block's pixel: false when the pixel skips it.
-// With LOCALIZE also dx, dy, the pixel's offset from the Gaussian's center.
+// Staged Gaussian j at the block's pixel (lx + ox, ly + oy): false when the
+// pixel skips it; else also dx, dy, the pixel's offset from the Gaussian's
+// center.
 template <bool LOCALIZE>
 __device__ __forceinline__ bool reaches_rm(float (*s)[kBlock], int j, float lx, float ly,
                                            float ox, float oy, float& dx, float& dy,
                                            float& alpha_un) {
-  if (LOCALIZE) return reaches(s, j, lx + ox, ly + oy, dx, dy, alpha_un);
-  return reaches_packed(s, j, lx, ly, alpha_un);
+  static_assert(LOCALIZE, "the stage probes take global conic rows");
+  return reaches(s, j, lx + ox, ly + oy, dx, dy, alpha_un);
 }
 
 // The ten values a contributing visit adds to its row: dquad's six, as
@@ -148,8 +126,8 @@ __device__ __forceinline__ void visit_values(float (&v)[kChannels], float (*s)[k
 
 // --------------------------------------------------------------------------
 // Stage probes (replace tools/kvariants.py:build_fwd and build_bwd): the
-// kernels below with LOCALIZE and a VARIANT other than kBase. The variants
-// are measuring instruments; the main path launches kBase only.
+// kernels below under a VARIANT other than kBase. The variants are
+// measuring instruments; no main path launches any of these kernels.
 //
 // Exact variants give the output of base:
 //   noskip     no block exit and no per-thread break: every thread evaluates
@@ -264,7 +242,7 @@ composite_rm_fwd_kernel(const float* __restrict__ quad, const float* __restrict_
                         const int* __restrict__ counts, const float* __restrict__ origins,
                         float* __restrict__ accum, float* __restrict__ tfinal, int K, int th,
                         int tw) {
-  static_assert(V == kBase || LOCALIZE, "the stage probes take global conic rows");
+  static_assert(LOCALIZE, "the stage probes take global conic rows");
   constexpr bool kPiped = V == kPipe;
   constexpr bool kStub = V == kNoExp;
   __shared__ float s_buf[kPiped ? 2 : 1][kStaged][kBlock];
@@ -392,7 +370,7 @@ composite_rm_bwd_kernel(const float* __restrict__ quad, const float* __restrict_
                         const float* __restrict__ accum, const float* __restrict__ tfinal,
                         float* __restrict__ dquad, float* __restrict__ dcolor, int K, int th,
                         int tw) {
-  static_assert(V == kBase || LOCALIZE, "the stage probes take global conic rows");
+  static_assert(LOCALIZE, "the stage probes take global conic rows");
   constexpr bool kPiped = V == kPipe;
   constexpr bool kStub = V == kNoExp;
   constexpr bool kLog = V == kLogSp || V == kNoTLogSp;
@@ -553,22 +531,22 @@ composite_rm_bwd_kernel(const float* __restrict__ quad, const float* __restrict_
   }
 }
 
-template <bool LOCALIZE, int V = kBase>
+template <int V>
 int launch_fwd(const float* quad, const float* color, const int* counts, const float* origins,
                float* accum, float* tfinal, int T, int K, int th, int tw, void* stream) {
   const dim3 grid(T, (th * tw + kBlock - 1) / kBlock);
-  composite_rm_fwd_kernel<LOCALIZE, V><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+  composite_rm_fwd_kernel<true, V><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       quad, color, counts, origins, accum, tfinal, K, th, tw);
   return (int)cudaGetLastError();
 }
 
-template <bool LOCALIZE, int V = kBase>
+template <int V>
 int launch_bwd(const float* quad, const float* color, const int* counts, const float* origins,
                const float* g_accum, const float* g_tfinal, const float* accum,
                const float* tfinal, float* dquad, float* dcolor, int T, int K, int th, int tw,
                void* stream) {
   const dim3 grid(T, (th * tw + kBlock - 1) / kBlock);
-  composite_rm_bwd_kernel<LOCALIZE, V><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+  composite_rm_bwd_kernel<true, V><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       quad, color, counts, origins, g_accum, g_tfinal, accum, tfinal, dquad, dcolor, K, th, tw);
   return (int)cudaGetLastError();
 }
@@ -577,40 +555,17 @@ int launch_bwd(const float* quad, const float* color, const int* counts, const f
 
 extern "C" {
 
-// quad (T, K, 8) f32: global conic rows when origins (T, 2) f32 are given,
-// packed rows [c0..c5, log_op, 0] when origins is null; color (T, K, 4) f32;
-// counts (T,) i32; accum (T, th*tw, 4) f32; tfinal (T, th*tw, 1) f32. Every
-// pointer 16-byte aligned. Returns cudaGetLastError() after the launch.
-int composite_tiles_fwd(const float* quad, const float* color, const int* counts,
-                        const float* origins, float* accum, float* tfinal, int T, int K, int th,
-                        int tw, void* stream) {
-  if (origins != nullptr)
-    return launch_fwd<true>(quad, color, counts, origins, accum, tfinal, T, K, th, tw, stream);
-  return launch_fwd<false>(quad, color, counts, nullptr, accum, tfinal, T, K, th, tw, stream);
-}
-
-// g_accum, accum (T, th*tw, 4) f32; g_tfinal, tfinal (T, th*tw, 1) f32: the
-// cotangents and the forward's own outputs. dquad (T, K, 8), dcolor (T, K, 4)
-// f32, zeroed by the caller: dead slots and lanes 6-7 stay zero. With origins
-// dquad comes in the global row layout [dA, dB, dC, dgx, dgy, dlog_op, 0, 0].
-int composite_tiles_bwd(const float* quad, const float* color, const int* counts,
-                        const float* origins, const float* g_accum, const float* g_tfinal,
-                        const float* accum, const float* tfinal, float* dquad, float* dcolor,
-                        int T, int K, int th, int tw, void* stream) {
-  if (origins != nullptr)
-    return launch_bwd<true>(quad, color, counts, origins, g_accum, g_tfinal, accum, tfinal, dquad,
-                            dcolor, T, K, th, tw, stream);
-  return launch_bwd<false>(quad, color, counts, nullptr, g_accum, g_tfinal, accum, tfinal, dquad,
-                           dcolor, T, K, th, tw, stream);
-}
-
-// The stage probes: composite_tiles_fwd / composite_tiles_bwd with origins
-// (global conic rows) under `variant` (enum Variant above; kBase is kernels
-// 5 and 6 themselves). An unknown variant returns cudaErrorInvalidValue.
+// The stage probes on global conic rows with origins, under `variant` (enum
+// Variant above; kBase is the one-pixel-a-thread design itself): quad (T, K,
+// 8), origins (T, 2), color (T, K, 4), counts (T,), accum (T, th*tw, 4),
+// tfinal (T, th*tw, 1); the backward's g_accum, g_tfinal, dquad and dcolor as
+// composite_tiles_bwd's (composite_bwd.cu), dquad and dcolor zeroed by the
+// caller. Every pointer 16-byte aligned. Returns cudaGetLastError() after
+// the launch; an unknown variant returns cudaErrorInvalidValue.
 int composite_rm_fwd_variant(int variant, const float* quad, const float* color, const int* counts,
                              const float* origins, float* accum, float* tfinal, int T, int K,
                              int th, int tw, void* stream) {
-#define FWD(V) launch_fwd<true, V>(quad, color, counts, origins, accum, tfinal, T, K, th, tw, stream)
+#define FWD(V) launch_fwd<V>(quad, color, counts, origins, accum, tfinal, T, K, th, tw, stream)
   switch (variant) {
     case kBase: return FWD(kBase);
     case kNoExp: return FWD(kNoExp);
@@ -628,9 +583,9 @@ int composite_rm_bwd_variant(int variant, const float* quad, const float* color,
                              const float* origins, const float* g_accum, const float* g_tfinal,
                              const float* accum, const float* tfinal, float* dquad, float* dcolor,
                              int T, int K, int th, int tw, void* stream) {
-#define BWD(V)                                                                              \
-  launch_bwd<true, V>(quad, color, counts, origins, g_accum, g_tfinal, accum, tfinal, dquad, \
-                      dcolor, T, K, th, tw, stream)
+#define BWD(V)                                                                         \
+  launch_bwd<V>(quad, color, counts, origins, g_accum, g_tfinal, accum, tfinal, dquad, \
+                dcolor, T, K, th, tw, stream)
   switch (variant) {
     case kBase: return BWD(kBase);
     case kNoExp: return BWD(kNoExp);

@@ -8,10 +8,10 @@ the measuring kernels of the probe tools (the stage probes of
 tools/kvariants.py, the window build of tools/win_probe.py).
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor goes
-to the kernel (``csrc/composite.cu``, ``csrc/composite_bwd.cu``: kernels 1-4
-and 7-8 on one body each way; ``csrc/composite_rm.cu``: kernels 5-6 and the
-stage probes; ``csrc/windows.cu``), or the wrapper raises. There is no
-fallback. Each wrapper counts its launches in ``<wrapper>.launches``.
+to the kernel (``csrc/composite.cu``, ``csrc/composite_bwd.cu``: kernels 1-8
+on one body each way; ``csrc/composite_rm.cu``: the stage probes;
+``csrc/windows.cu``), or the wrapper raises. There is no fallback. Each
+wrapper counts its launches in ``<wrapper>.launches``.
 
 The backward functions return the cotangent of the rows from the saved
 output ``full`` and its cotangent ``g_full``, with renderCUDA's rule
@@ -372,7 +372,7 @@ def composite_pairs_bwd_rg_plain(rows, tid, flags, bg, oy_off: float, full, g_fu
 
 
 # --------------------------------------------------------------------------
-# the pair bodies' cull and exp gate (kernels 1-4, 7 and 8), in Python for
+# the pair bodies' cull and exp gate (kernels 1-8), in Python for
 # the tests and chip_smoke.py (no kernel path calls these)
 # --------------------------------------------------------------------------
 
@@ -518,6 +518,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+# argtypes of the row-major entry points with origins (kernels 5 and 6, and
+# their stage probes after the variant): quad, color, counts, origins, then
+# accum, tfinal (forward) or g_accum, g_tfinal, accum, tfinal, dquad, dcolor
+# (backward), T, K, th, tw, stream
+_RM_FWD_ARGS = [_P] * 6 + [_I] * 4 + [_P]
+_RM_BWD_ARGS = [_P] * 10 + [_I] * 4 + [_P]
+
+
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load("composite")
     lib.composite_tiles_fwd_cm.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
@@ -525,7 +533,9 @@ def _lib() -> ctypes.CDLL:
         _P, _P, _P, _P, ctypes.c_float, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P,
     ]
     lib.composite_tiles_fwd_v2.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-    for fn in (lib.composite_tiles_fwd_cm, lib.composite_pairs_fwd_rg, lib.composite_tiles_fwd_v2):
+    lib.composite_tiles_fwd.argtypes = _RM_FWD_ARGS
+    for fn in (lib.composite_tiles_fwd_cm, lib.composite_pairs_fwd_rg, lib.composite_tiles_fwd_v2,
+               lib.composite_tiles_fwd):
         fn.restype = _I
     return lib
 
@@ -537,7 +547,9 @@ def _lib_bwd() -> ctypes.CDLL:
         _P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _I, _I, _P,
     ]
     lib.composite_tiles_bwd_v2.argtypes = [_P] * 9 + [_I, _I, _I, _I, _P]
-    for fn in (lib.composite_tiles_bwd_cm, lib.composite_pairs_bwd_rg, lib.composite_tiles_bwd_v2):
+    lib.composite_tiles_bwd.argtypes = _RM_BWD_ARGS
+    for fn in (lib.composite_tiles_bwd_cm, lib.composite_pairs_bwd_rg, lib.composite_tiles_bwd_v2,
+               lib.composite_tiles_bwd):
         fn.restype = _I
     return lib
 
@@ -701,20 +713,17 @@ composite_pairs_bwd_rg.launches = 0
 
 
 # --------------------------------------------------------------------------
-# row-major kernels: kernel_v=2 (3, 4) on the pair bodies of
-# csrc/composite.cu and csrc/composite_bwd.cu; 5, 6 and the stage probes in
+# row-major kernels: kernel_v=2 (3, 4) and 5, 6 on the pair bodies of
+# csrc/composite.cu and csrc/composite_bwd.cu; the stage probes in
 # csrc/composite_rm.cu
 # --------------------------------------------------------------------------
 
 
 def _lib_rm() -> ctypes.CDLL:
     lib = cuda_build.load("composite_rm")
-    lib.composite_tiles_fwd.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-    lib.composite_tiles_bwd.argtypes = [_P] * 10 + [_I, _I, _I, _I, _P]
-    lib.composite_rm_fwd_variant.argtypes = [_I] + lib.composite_tiles_fwd.argtypes
-    lib.composite_rm_bwd_variant.argtypes = [_I] + lib.composite_tiles_bwd.argtypes
-    for fn in (lib.composite_tiles_fwd, lib.composite_tiles_bwd, lib.composite_rm_fwd_variant,
-               lib.composite_rm_bwd_variant):
+    lib.composite_rm_fwd_variant.argtypes = [_I] + _RM_FWD_ARGS
+    lib.composite_rm_bwd_variant.argtypes = [_I] + _RM_BWD_ARGS
+    for fn in (lib.composite_rm_fwd_variant, lib.composite_rm_bwd_variant):
         fn.restype = _I
     return lib
 
@@ -754,7 +763,7 @@ def _fwd_rm(wrapper, tile_quad, tile_color, tile_counts, tile_shape, tile_origin
         elif variant is not None:
             rc = _lib_rm().composite_rm_fwd_variant(variant, *head, origins, *tail)
         else:
-            rc = _lib_rm().composite_tiles_fwd(*head, origins, *tail)
+            rc = _lib().composite_tiles_fwd(*head, origins, *tail)
     _raise_on(rc, wrapper.__name__)
     wrapper.launches += 1
     return accum, tfinal
@@ -793,7 +802,7 @@ def _bwd_rm(wrapper, tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accu
         elif variant is not None:
             rc = _lib_rm().composite_rm_bwd_variant(variant, *head, origins, *tail)
         else:
-            rc = _lib_rm().composite_tiles_bwd(*head, origins, *tail)
+            rc = _lib_bwd().composite_tiles_bwd(*head, origins, *tail)
     _raise_on(rc, wrapper.__name__)
     wrapper.launches += 1
     return dquad, dcolor
@@ -817,7 +826,8 @@ def composite_tiles_fwd(tile_quad, tile_color, tile_counts, tile_shape,
                         tile_origins=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The same function; with ``tile_origins`` (T, 2) f32 the rows of
     tile_quad are global conic rows and q is the direct form of the
-    channel-major kernels. Replaces pallas_kernels.composite_tiles_fwd."""
+    channel-major kernels (kernel 5; without origins kernel 3's body runs,
+    counted here). Replaces pallas_kernels.composite_tiles_fwd."""
     if _on_cpu(tile_quad):
         return composite_tiles_fwd_plain(tile_quad, tile_color, tile_counts, tile_shape,
                                          tile_origins)
@@ -846,7 +856,8 @@ composite_tiles_bwd_v2.launches = 0
 def composite_tiles_bwd(tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accum, tfinal,
                         tile_shape, tile_origins=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backward of ``composite_tiles_fwd``; with ``tile_origins`` dquad comes
-    in the global row layout. Replaces pallas_kernels.composite_tiles_bwd."""
+    in the global row layout (kernel 6; without origins kernel 4's body runs,
+    counted here). Replaces pallas_kernels.composite_tiles_bwd."""
     if _on_cpu(tile_quad):
         return composite_tiles_bwd_plain(tile_quad, tile_color, tile_counts, g_accum, g_tfinal,
                                          accum, tfinal, tile_shape, tile_origins)
@@ -858,9 +869,11 @@ composite_tiles_bwd.launches = 0
 
 
 # --------------------------------------------------------------------------
-# stage probes: kernels 5 and 6 with origins, one stage stubbed or
-# reformulated (csrc/composite_rm.cu, the same kernel templates under a
-# compile-time variant; replace tools/kvariants.py:build_fwd and build_bwd).
+# stage probes: the one-pixel-a-thread design of composite_tiles_fwd / _bwd
+# with origins, one stage stubbed or reformulated (csrc/composite_rm.cu, two
+# kernel templates under a compile-time variant; replace
+# tools/kvariants.py:build_fwd and build_bwd). ``base`` is that design
+# itself, the instrument's own base; kernels 5 and 6 run the pair bodies.
 # The variants, their semantics and what each isolates are described at
 # "Stage probes" in composite_rm.cu.
 # --------------------------------------------------------------------------
@@ -1077,18 +1090,17 @@ def composite_tiles_bwd_variant_plain(variant, tile_quad, tile_color, tile_count
 
 def composite_tiles_fwd_variant(variant: str, tile_quad, tile_color, tile_counts, tile_shape,
                                 tile_origins) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``composite_tiles_fwd`` with origins (global conic rows) under the
-    stage probe ``variant`` (one of FWD_VARIANTS). ``base`` is kernel 5
-    itself, launched and counted as ``composite_tiles_fwd``. Replaces the
-    Pallas kernel of tools/kvariants.py:build_fwd."""
+    """The function of ``composite_tiles_fwd`` with origins (global conic
+    rows) in the stage probes' one-pixel-a-thread design under ``variant``
+    (one of FWD_VARIANTS); ``base`` is that design unstubbed, launched and
+    counted here like every variant. Replaces the Pallas kernel of
+    tools/kvariants.py:build_fwd."""
     vid = _variant_id(variant, FWD_VARIANTS)
     if _on_cpu(tile_quad):
         return composite_tiles_fwd_variant_plain(variant, tile_quad, tile_color, tile_counts,
                                                  tile_shape, tile_origins)
     if tile_origins is None:
         raise ValueError("the stage probes take global conic rows and tile_origins")
-    if variant == "base":
-        return composite_tiles_fwd(tile_quad, tile_color, tile_counts, tile_shape, tile_origins)
     return _fwd_rm(composite_tiles_fwd_variant, tile_quad, tile_color, tile_counts, tile_shape,
                    tile_origins, vid)
 
@@ -1099,10 +1111,10 @@ composite_tiles_fwd_variant.launches = 0
 def composite_tiles_bwd_variant(variant: str, tile_quad, tile_color, tile_counts, g_accum,
                                 g_tfinal, accum, tfinal, tile_shape,
                                 tile_origins) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``composite_tiles_bwd`` with origins under the stage probe ``variant``
-    (one of BWD_VARIANTS). ``base`` is kernel 6 itself, launched and
-    counted as ``composite_tiles_bwd``. Replaces the Pallas kernel of
-    tools/kvariants.py:build_bwd."""
+    """The function of ``composite_tiles_bwd`` with origins in the stage
+    probes' design under ``variant`` (one of BWD_VARIANTS); ``base``
+    unstubbed, counted here like every variant. Replaces the Pallas kernel
+    of tools/kvariants.py:build_bwd."""
     vid = _variant_id(variant, BWD_VARIANTS)
     if _on_cpu(tile_quad):
         return composite_tiles_bwd_variant_plain(variant, tile_quad, tile_color, tile_counts,
@@ -1110,9 +1122,6 @@ def composite_tiles_bwd_variant(variant: str, tile_quad, tile_color, tile_counts
                                                  tile_origins)
     if tile_origins is None:
         raise ValueError("the stage probes take global conic rows and tile_origins")
-    if variant == "base":
-        return composite_tiles_bwd(tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accum,
-                                   tfinal, tile_shape, tile_origins)
     return _bwd_rm(composite_tiles_bwd_variant, tile_quad, tile_color, tile_counts, g_accum,
                    g_tfinal, accum, tfinal, tile_shape, tile_origins, vid)
 

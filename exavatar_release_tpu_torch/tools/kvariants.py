@@ -1,9 +1,12 @@
-"""Kernel-internals attribution probe: times the row-major compositing
-kernels with origins (kernels 5 and 6) compiled with one stage stubbed or
-reformulated, each variant an instantiation of their own templates
-(counterpart of tools/kvariants.py of the JAX repository; the variants are
-described at "Stage probes" in csrc/composite_rm.cu; base is kernels 5 and
-6 themselves):
+"""Kernel-internals attribution probe: times the one-pixel-a-thread design
+of the row-major compositing kernels with origins compiled with one stage
+stubbed or reformulated, each variant an instantiation of the probes'
+templates (counterpart of tools/kvariants.py of the JAX repository; the
+variants are described at "Stage probes" in csrc/composite_rm.cu; base is
+that design unstubbed). Kernels 5 and 6 themselves ("the product") run the
+pair bodies of csrc/composite.cu and csrc/composite_bwd.cu: they are timed
+on the same scene beside base, and give the reference of every exact
+variant.
 
   fwd: base, noexp, nomm, noskip, logsp, pipe, chunk
   bwd: base, noexp, nomm, nograd, fusedgrad, noT, nodeloc, logsp, noT+logsp,
@@ -128,13 +131,17 @@ def pixels_off(accum, ref, tol: float = 1e-5) -> int:
 
 def run_probes(s: Dict[str, object], iters: int, log: Optional[Callable[[str], None]] = print
                ) -> Dict[str, Dict[str, float]]:
-    """Every variant timed on the scene ``s``, forward then backward, each
-    exact one with its distance from kernels 5 and 6. Returns {"fwd": {name:
-    ms}, "bwd": {name: ms}, "err": {"fwd/name": err, ...}}."""
+    """Kernels 5 and 6 and every variant timed on the scene ``s``, forward
+    then backward, each exact variant with its distance from kernels 5 and 6.
+    Returns {"fwd": {name: ms}, "bwd": {name: ms}, "err": {"fwd/name": err,
+    ...}, "product": {"fwd": ms, "bwd": ms}}."""
     dev = s["quad"].device
     tile = s["tile_shape"]
-    ref_f = kn.composite_tiles_fwd(s["quad"], s["color"], s["counts"], tile, s["origins"])
-    res = {"fwd": {}, "bwd": {}, "err": {}}
+    args = (s["quad"], s["color"], s["counts"])
+    product_f = lambda: kn.composite_tiles_fwd(*args, tile, s["origins"])
+    ref_f = product_f()
+    res = {"fwd": {}, "bwd": {}, "err": {}, "product": {"fwd": time_ms(product_f, iters, dev)}}
+    log(f"fwd/product: {res['product']['fwd']:7.2f} ms  (kernel 5, the pair body)")
     for v in kn.FWD_VARIANTS:
         ms = time_ms(lambda: fwd(v, s), iters, dev)
         res["fwd"][v] = ms
@@ -148,8 +155,10 @@ def run_probes(s: Dict[str, object], iters: int, log: Optional[Callable[[str], N
                           f"{pixels_off(a, ref_f[0])} pixels over 1e-5 of the max)")
         log(f"fwd/{v:7s}: {ms:7.2f} ms{extra}")
     cot = (torch.ones_like(ref_f[0]), torch.ones_like(ref_f[1]))
-    ref_b = kn.composite_tiles_bwd(s["quad"], s["color"], s["counts"], *cot, *ref_f, tile,
-                                   s["origins"])
+    product_b = lambda: kn.composite_tiles_bwd(*args, *cot, *ref_f, tile, s["origins"])
+    ref_b = product_b()
+    res["product"]["bwd"] = time_ms(product_b, iters, dev)
+    log(f"bwd/product: {res['product']['bwd']:7.2f} ms  (kernel 6, the pair body)")
     for v in kn.BWD_VARIANTS:
         ms = time_ms(lambda: bwd(v, s, cot, ref_f), iters, dev)
         res["bwd"][v] = ms

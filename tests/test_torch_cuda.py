@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: the compositing kernels forward and
-backward, channel-major, pair-major and row-major, the stage variants of the
-row-major ones and the window build, each against its plain PyTorch version
+backward, channel-major, pair-major and row-major, the stage probes and the
+window build, each against its plain PyTorch version
 on the same CUDA tensors; the wrappers' input checks, their launch counters,
 a render's gradients against the same render on CPU tensors, and a failed
 build. Marked ``cuda``; skips
@@ -331,7 +331,8 @@ def test_rasterize_gradients_card_vs_cpu(dev, pair_major):
 
 
 # --------------------------------------------------------------------------
-# the row-major kernels (csrc/composite_rm.cu)
+# the row-major kernels (3-6, on the pair bodies of csrc/composite.cu and
+# csrc/composite_bwd.cu)
 # --------------------------------------------------------------------------
 
 
@@ -384,6 +385,65 @@ def test_v2_kernels_past_65535_tiles(dev):
     win, counts, origins = _pair_windows(np.random.default_rng(26), "small", T=66_000, nx=300,
                                          K=12, tile=(8, 8))
     _v2_kernels_against_plain(dev, win, counts, origins, (8, 8))
+
+
+def _rm_kernels_against_plain(dev, win, counts, origins, tile):
+    """Kernel 5 bit for bit and kernel 6 row by row against their plain
+    versions on dense windows as global conic rows with origins; kernel 6's
+    lanes 6-7 (in ``_worst_row``) and its slots at or past each tile's count
+    exactly zero. Returns the rows, the counts, the origins and the plain
+    version's visits per pixel."""
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    win, counts, origins = to(win), to(counts), to(origins)
+    rows_g, _, color = chip_smoke.rm_rows_from_windows(win, origins)
+    args = (rows_g, color, counts, tile)
+    n5, n6 = kn.composite_tiles_fwd.launches, kn.composite_tiles_bwd.launches
+    accum, tfinal = kn.composite_tiles_fwd(*args, origins)
+    w_accum, w_tfinal, visits = kn.composite_rm_plain_with_visits(*args, origins)
+    assert torch.equal(accum, w_accum) and torch.equal(tfinal, w_tfinal)
+    T, P = accum.shape[:2]
+    g = torch.Generator().manual_seed(8)
+    cot = (torch.randn(T, P, 4, generator=g).to(dev), torch.randn(T, P, 1, generator=g).to(dev))
+    bargs = (rows_g, color, counts, *cot, accum, tfinal, tile, origins)
+    got = kn.composite_tiles_bwd(*bargs)
+    want = kn.composite_tiles_bwd_plain(*bargs)
+    assert (kn.composite_tiles_fwd.launches, kn.composite_tiles_bwd.launches) == (n5 + 1, n6 + 1)
+    assert _worst_row(torch.cat(got, dim=2), torch.cat(want, dim=2), 2) <= 1e-4
+    past = torch.arange(rows_g.shape[1], device=dev)[None, :] >= counts[:, None]
+    assert not got[0][past].any() and not got[1][past].any()
+    return rows_g, counts, origins, visits
+
+
+@pytest.mark.parametrize("case", ["small", "edges", "counts", "truncated", "off_grid",
+                                  "tile_20x36"])
+def test_rm_kernels_equal_plain_where_the_cull_bites(dev, case):
+    """Kernels 5 and 6 (the pair bodies on global conic rows with origins)
+    on the pair-major cases' windows, on counts above K beside an empty
+    tile, on origins off the tile grid (half a pixel and a band offset:
+    the kernels take each tile's origin as given) and on 20 x 36 tiles, not
+    a multiple of the 8 x 8 patch."""
+    rng = np.random.default_rng(27)
+    tile = (20, 36) if case == "tile_20x36" else TILE
+    win, counts, origins = _pair_windows(rng, case if case in ("small", "edges", "counts")
+                                         else "small", tile=tile)
+    K = win.shape[2]
+    if case == "truncated":
+        counts[:] = [K + 1, 3 * K, K, 0, 300, K + 7]
+    elif case == "off_grid":
+        shift = np.asarray([0.5, 1045.25], np.float32)
+        origins += shift
+        win[:, 3:5] += shift[None, :, None]
+    rows_g, n, o, visits = _rm_kernels_against_plain(dev, win, counts, origins, tile)
+    # the cull does skip rows here: most (warp, row) pairs the warps reach
+    st = chip_smoke.pair_cull_stats(rows_g.transpose(1, 2), n, o, tile, visits)
+    assert st.warp_rows_culled > st.warp_rows // 2
+
+
+def test_rm_kernels_past_65535_tiles(dev):
+    """Kernels 5 and 6's one-dimensional grid: 66,000 tiles of 8 x 8."""
+    win, counts, origins = _pair_windows(np.random.default_rng(28), "small", T=66_000, nx=300,
+                                         K=12, tile=(8, 8))
+    _rm_kernels_against_plain(dev, win, counts, origins, (8, 8))
 
 
 @pytest.fixture(scope="module")
@@ -538,7 +598,8 @@ def test_failed_build_raises(dev, tmp_path, monkeypatch):
 
 
 # --------------------------------------------------------------------------
-# the probe kernels: stage variants of kernels 5 and 6, the window build
+# the probe kernels: stage variants of the one-pixel-a-thread design of
+# kernels 5 and 6 (csrc/composite_rm.cu), the window build
 # --------------------------------------------------------------------------
 
 
@@ -575,20 +636,22 @@ def _rows_err(got, want):
 def test_fwd_variant_equals_plain(probe_rows, variant):
     r = probe_rows
     args = (r["quad"], r["color"], r["counts"], TILE, r["origins"])
-    # base is kernel 5 itself and counts as such
-    counted = kn.composite_tiles_fwd if variant == "base" else kn.composite_tiles_fwd_variant
-    before = counted.launches
+    # every variant, base included, launches the probes' own kernel and
+    # counts there; kernel 5 is not launched
+    before = (kn.composite_tiles_fwd_variant.launches, kn.composite_tiles_fwd.launches)
     got = kn.composite_tiles_fwd_variant(variant, *args)
     want = kn.composite_tiles_fwd_variant_plain(variant, *args)
     torch.cuda.synchronize()
-    assert counted.launches == before + 1
+    assert (kn.composite_tiles_fwd_variant.launches, kn.composite_tiles_fwd.launches) == (
+        before[0] + 1, before[1])
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
     if variant == "base":
+        # the one-pixel-a-thread design and kernel 5's pair body, bit for bit
         assert all(torch.equal(g, w) for g, w in zip(got, r["fwd"]))
         # the probes' entry point at variant 0 launches the same kernel
         direct = kn._fwd_rm(kn.composite_tiles_fwd_variant, *args, kn.VARIANT_IDS["base"])
-        assert all(torch.equal(g, w) for g, w in zip(direct, r["fwd"]))
+        assert all(torch.equal(g, w) for g, w in zip(direct, got))
     if variant in kn.EXACT_VARIANTS:
         for g, w in zip(got, r["fwd"]):
             assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
@@ -598,9 +661,12 @@ def test_fwd_variant_equals_plain(probe_rows, variant):
 def test_bwd_variant_equals_plain(probe_rows, variant):
     r = probe_rows
     args = (r["quad"], r["color"], r["counts"], *r["cot"], *r["fwd"], TILE, r["origins"])
+    before = (kn.composite_tiles_bwd_variant.launches, kn.composite_tiles_bwd.launches)
     got = kn.composite_tiles_bwd_variant(variant, *args)
     want = kn.composite_tiles_bwd_variant_plain(variant, *args)
     torch.cuda.synchronize()
+    assert (kn.composite_tiles_bwd_variant.launches, kn.composite_tiles_bwd.launches) == (
+        before[0] + 1, before[1])
     assert not got[0][..., 6:].any()
     if variant == "nograd":
         assert not got[0].any() and not got[1].any()
@@ -609,6 +675,8 @@ def test_bwd_variant_equals_plain(probe_rows, variant):
     if variant == "base" or variant in kn.EXACT_VARIANTS:
         b6 = kn.composite_tiles_bwd(r["quad"], r["color"], r["counts"], *r["cot"], *r["fwd"],
                                     TILE, r["origins"])
+        # base against kernel 6's pair body: the same terms summed in another
+        # order (one pixel a thread against two, then the warp; atomics)
         assert _rows_err(got, b6) <= (1e-6 if variant == "base" else 1e-4)
 
 

@@ -1,12 +1,13 @@
 """The pair bodies' schedule on the CPU (csrc/composite.cu
 ``composite_pairs_range``, csrc/composite_bwd.cu ``composite_pairs_range_bwd``,
-the one body of the dense, the pair-major and the kernel_v=2 kernels): the
+the one body of the dense, the pair-major and the row-major kernels): the
 per-warp row cull by ``kernels.row_pixel_box`` (conic rows) and
 ``kernels.packed_row_pixel_box`` (packed rows) and the exp gate
 ``kernels.Q_GATE`` must change nothing, so the schedule's forward is the
 plain version's bit for bit and its backward the plain version's up to the
-order of its sums, on ragged and dense windows and on packed rows. The
-kernels themselves run only on the card (tests/test_torch_cuda.py)."""
+order of its sums, on ragged and dense windows, on packed rows and on
+row-major global conic rows with origins. The kernels themselves run only
+on the card (tests/test_torch_cuda.py)."""
 import math
 import os.path as osp
 import re
@@ -301,6 +302,14 @@ def _scan(n, tile, q_of, color_of, miss_all, back=None):
     return (acc, Tr), culled, gated
 
 
+def _conic_grad(dq, extra):
+    """The six values of a conic row's gradient at each pixel, direct terms
+    from the pixel's offset to the center, as the kernels add them."""
+    A, B, C, dx, dy = extra
+    return [-0.5 * (dx * dx) * dq, -(dx * dy) * dq, -0.5 * (dy * dy) * dq,
+            (A * dx + B * dy) * dq, (B * dx + C * dy) * dq, dq]
+
+
 def _schedule(s, g_full=None):
     """``_scan`` on conic windows (a tile's rows k < width, the box in global
     pixel coordinates at the tiles' origins). Returns (out or dwin, number
@@ -324,31 +333,33 @@ def _schedule(s, g_full=None):
     A_p = (g_acc[0] * (full[:, 0] - bg[0] * tfinal) + g_acc[1] * (full[:, 1] - bg[1] * tfinal)
            + g_acc[2] * (full[:, 2] - bg[2] * tfinal) + g_acc[3] * full[:, 3] + g_tf * tfinal)
 
-    def grad_of(dq, extra):
-        A, B, C, dx, dy = extra
-        return [-0.5 * (dx * dx) * dq, -(dx * dy) * dq, -0.5 * (dy * dy) * dq,
-                (A * dx + B * dy) * dq, (B * dx + C * dy) * dq, dq]
-
-    red, culled, gated = _scan(n, tile, q_of, color_of, miss_all, (g_acc, A_p, grad_of))
+    red, culled, gated = _scan(n, tile, q_of, color_of, miss_all, (g_acc, A_p, _conic_grad))
     dwin = torch.zeros(Tn, 12, Kw)
     dwin[:, 0:6] = red[..., 0:6].permute(0, 2, 1)
     dwin[:, 8:12] = red[..., 6:10].permute(0, 2, 1)
     return dwin, culled, gated
 
 
-def _schedule_packed(quad, color, counts, tile, cot=None):
-    """``_scan`` on a tile's packed rows (T, K, 8), read up to min(count, K),
-    with the box and the patches in tile-local coordinates, as kernels 3 and
-    4 run it. cot = (g_accum, g_tfinal, accum, tfinal) for the backward.
-    Returns ((accum, tfinal) or (dquad, dcolor), visits culled, visits
-    spared an exp by the gate)."""
+def _schedule_rm(quad, color, counts, tile, origins=None, cot=None):
+    """``_scan`` on a tile's row-major rows (T, K, 8), read up to min(count,
+    K): packed rows with the box and the patches in tile-local coordinates,
+    as kernels 3 and 4 run them, or with ``origins`` (T, 2) global conic
+    rows with the box in global coordinates and the patches at the tiles'
+    origins, as kernels 5 and 6 run them. cot = (g_accum, g_tfinal, accum,
+    tfinal) for the backward. Returns ((accum, tfinal) or (dquad, dcolor),
+    visits culled, visits spared an exp by the gate)."""
     Tn, Kq, _ = quad.shape
     n = torch.clamp(counts.long(), max=Kq)
-    lx, ly = kn._tile_pixels(Tn, tile, quad.device)
+    lx, ly = kn._tile_pixels(Tn, tile, quad.device, origins)
     lay = chip_smoke.pair_layout(tile)
-    box = kn.packed_row_pixel_box(quad, tile)  # (4, T, K)
-    miss_all = chip_smoke.patch_misses(box, lay.bounds, torch.zeros(Tn, 2))
-    q_of = lambda k: kn._packed_q(quad[:, k], lx, ly)
+    if origins is None:
+        box = kn.packed_row_pixel_box(quad, tile)  # (4, T, K)
+        miss_all = chip_smoke.patch_misses(box, lay.bounds, torch.zeros(Tn, 2))
+        q_of = lambda k: kn._packed_q(quad[:, k], lx, ly)
+    else:
+        box = kn.row_pixel_box(quad.permute(2, 0, 1))
+        miss_all = chip_smoke.patch_misses(box, lay.bounds, origins)
+        q_of = lambda k: kn._conic_q(quad[:, k], lx, ly)
     color_of = lambda k: color[:, k]
     if cot is None:
         (acc, Tr), culled, gated = _scan(n, tile, q_of, color_of, miss_all)
@@ -358,7 +369,7 @@ def _schedule_packed(quad, color, counts, tile, cot=None):
     A_p = (g_acc[0] * accum[:, :, 0] + g_acc[1] * accum[:, :, 1] + g_acc[2] * accum[:, :, 2]
            + g_acc[3] * accum[:, :, 3] + g_tfinal[:, :, 0] * tfinal[:, :, 0])
     basis = (lx, ly, lx * lx, lx * ly, ly * ly)
-    grad_of = lambda dq, _: [dq] + [dq * b for b in basis]
+    grad_of = _conic_grad if origins is not None else (lambda dq, _: [dq] + [dq * b for b in basis])
     red, culled, gated = _scan(n, tile, q_of, color_of, miss_all, (g_acc, A_p, grad_of))
     dquad = torch.zeros(Tn, Kq, 8)
     dquad[..., 0:6] = red[..., 0:6]
@@ -585,7 +596,7 @@ def _packed_windows(tile, T, K, seed, counts):
 
 @pytest.mark.parametrize("case", ["random_32x128", "dense_20x36"])
 def test_packed_schedule_is_the_plain_version(case):
-    """Kernels 3 and 4's schedule (``_schedule_packed``: tile-local patches
+    """Kernels 3 and 4's schedule (``_schedule_rm``: tile-local patches
     and boxes, the gate, two pixels a thread, then the warp's shuffle tree)
     on packed rows: the forward bit-equal to ``composite_tiles_fwd_v2_plain``,
     the backward within 1e-6 of each row's largest value of
@@ -596,7 +607,7 @@ def test_packed_schedule_is_the_plain_version(case):
     tile, K, counts = (((32, 128), 289, [289, 0]) if case == "random_32x128"
                        else ((20, 36), 97, [97 + 40, 0]))
     packed, color, cnt = _packed_windows(tile, 4, K, 5, counts)
-    (acc, tf), culled, gated = _schedule_packed(packed, color, cnt, tile)
+    (acc, tf), culled, gated = _schedule_rm(packed, color, cnt, tile)
     want_acc, want_tf, visits = kn.composite_rm_plain_with_visits(packed, color, cnt, tile)
     assert torch.equal(acc, want_acc) and torch.equal(tf, want_tf)
     total = int(visits.sum())
@@ -607,7 +618,7 @@ def test_packed_schedule_is_the_plain_version(case):
     g = torch.Generator().manual_seed(6)
     P = tile[0] * tile[1]
     cot = (torch.randn(4, P, 4, generator=g), torch.randn(4, P, 1, generator=g), want_acc, want_tf)
-    (dq, dc), _, _ = _schedule_packed(packed, color, cnt, tile, cot)
+    (dq, dc), _, _ = _schedule_rm(packed, color, cnt, tile, cot=cot)
     wq, wc = kn.composite_tiles_bwd_v2_plain(packed, color, cnt, *cot, tile)
     err, ref = kn.bwd_row_errors(torch.cat([dq, dc], 2), torch.cat([wq, wc], 2), 2)
     used = [0, 1, 2, 3, 4, 5, 8, 9, 10, 11]
@@ -643,10 +654,116 @@ def test_packed_schedule_vs_pallas_interpret():
     packed[1, int(counts[1]):] = 7.0  # never read
     j_acc, j_tf = pk.composite_tiles_fwd_v2(jnp.asarray(packed), jnp.asarray(color),
                                             jnp.asarray(counts), tile, chunk=128, interpret=True)
-    (acc, tf), culled, gated = _schedule_packed(torch.from_numpy(packed), torch.from_numpy(color),
-                                                torch.from_numpy(counts), tile)
+    (acc, tf), culled, gated = _schedule_rm(torch.from_numpy(packed), torch.from_numpy(color),
+                                            torch.from_numpy(counts), tile)
     assert culled > 0 and gated > 0
     np.testing.assert_allclose(acc[..., :3].numpy(), np.asarray(j_acc)[..., :3], atol=1e-5)
     np.testing.assert_allclose(acc[..., 3].numpy(), np.asarray(j_acc)[..., 3], atol=1e-4)
     np.testing.assert_allclose(tf.numpy(), np.asarray(j_tf), atol=1e-5)
     assert float(tf.min()) < 2e-4  # some pixels terminated
+
+
+# --------------------------------------------------------------------------
+# (e) global conic rows with origins, row-major (kernels 5 and 6)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["random_32x128", "dense_20x36"])
+def test_conic_rm_schedule_is_the_plain_version(case):
+    """Kernels 5 and 6's schedule (``_schedule_rm`` with origins: global
+    boxes, patches at the tiles' origins, the gate, two pixels a thread,
+    then the warp's shuffle tree) on global conic rows (T, K, 8): the
+    forward bit-equal to ``composite_tiles_fwd_plain`` with origins, the
+    backward within 1e-6 of each row's largest value of
+    ``composite_tiles_bwd_plain`` with origins, its lanes 6-7 and its slots
+    at or past min(count, K) zero. Tiles of K rows and of none; a count above
+    K; a 20 x 36 tile, not a multiple of the 8 x 8 patch, at origins off the
+    tile grid (half a pixel and a band offset). The stats model
+    (``chip_smoke.pair_cull_stats`` on the rows transposed) counts the same
+    cull."""
+    tile, K, counts = (((32, 128), 289, [289, 0]) if case == "random_32x128"
+                       else ((20, 36), 97, [97 + 40, 0]))
+    win, cnt, origins = chip_smoke.random_windows(4, K, tile, 2, seed=7, device="cpu")
+    cnt[:2] = torch.tensor(counts, dtype=torch.int32)
+    if case == "dense_20x36":
+        shift = torch.tensor([0.5, 1045.25])
+        origins = origins + shift
+        win[:, 3:5] += shift[:, None]
+    rows_g, _, color = chip_smoke.rm_rows_from_windows(win, origins)
+    (acc, tf), culled, gated = _schedule_rm(rows_g, color, cnt, tile, origins)
+    want_acc, want_tf, visits = kn.composite_rm_plain_with_visits(rows_g, color, cnt, tile,
+                                                                  origins)
+    assert torch.equal(acc, want_acc) and torch.equal(tf, want_tf)
+    assert torch.equal(want_acc[1], torch.zeros_like(want_acc[1]))
+    assert torch.equal(want_tf[1], torch.ones_like(want_tf[1]))
+    total = int(visits.sum())
+    assert culled > 0.2 * total and gated > 0
+    st = chip_smoke.pair_cull_stats(rows_g.transpose(1, 2), cnt, origins, tile, visits)
+    assert st.visits == total and st.visits_left == total - culled
+    assert 0 < st.warp_rows_culled < st.warp_rows
+    g = torch.Generator().manual_seed(8)
+    P = tile[0] * tile[1]
+    cot = (torch.randn(4, P, 4, generator=g), torch.randn(4, P, 1, generator=g), want_acc, want_tf)
+    (dq, dc), _, _ = _schedule_rm(rows_g, color, cnt, tile, origins, cot)
+    wq, wc = kn.composite_tiles_bwd_plain(rows_g, color, cnt, *cot, tile, origins)
+    err, ref = kn.bwd_row_errors(torch.cat([dq, dc], 2), torch.cat([wq, wc], 2), 2)
+    used = [0, 1, 2, 3, 4, 5, 8, 9, 10, 11]
+    assert bool((ref[used] > 0).all())
+    assert float((err[used] / ref[used]).max()) <= 1e-6
+    past = torch.arange(K)[None, :] >= cnt[:, None]
+    assert not dq[..., 6:].any() and not wq[past].any() and not dq[past].any()
+    assert not dc[past].any()
+
+
+def test_conic_rm_schedule_vs_pallas_interpret():
+    """At the smallest shape the JAX package's tests compare (4 tiles of 8 x
+    32, K = 256, the rows of tests/test_torch_rowmajor.py's fixture: opaque
+    Gaussians that clamp alpha and end pixels, garbage past tile 1's count)
+    kernels 5 and 6's schedule on global conic rows with origins against
+    ``pallas_kernels.composite_tiles_fwd`` / ``composite_tiles_bwd`` with
+    ``tile_origins`` in interpret mode, at that file's tolerances: forward
+    1e-5 (depth 1e-4), each gradient lane 5e-4 of its largest value (the
+    Pallas kernels carry T through log-space prefix products and reach the
+    conic's gradient through the packed basis)."""
+    import jax.numpy as jnp
+
+    from exavatar_release_tpu.ops.rasterizer import pallas_kernels as pk
+    from torch_windows import windows
+
+    tile = (8, 32)
+    rng = np.random.default_rng(31)
+    win, counts, origins = windows(rng, T=4, K=256, tile_shape=tile, nx=2)
+    win[:, 5, ::9] = 0.0
+    win[:, 3, ::9] = np.round(win[:, 3, ::9]) + 0.25
+    win[:, 4, ::9] = np.round(win[:, 4, ::9]) + 0.25
+    rows_g = np.ascontiguousarray(win[:, :8].transpose(0, 2, 1))
+    color = np.ascontiguousarray(win[:, 8:].transpose(0, 2, 1))
+    n1 = int(counts[1])
+    rows_g[1, n1:] = 7.0  # never read
+    P = tile[0] * tile[1]
+    cot = (rng.normal(size=(4, P, 4)).astype(np.float32),
+           rng.normal(size=(4, P, 1)).astype(np.float32))
+    j = jnp.asarray
+    args = (rows_g, color, counts)
+    j_acc, j_tf = pk.composite_tiles_fwd(*map(j, args), tile, chunk=128, interpret=True,
+                                         tile_origins=j(origins))
+    j_dq, j_dc = pk.composite_tiles_bwd(*map(j, args), *map(j, cot), j_acc, j_tf, tile,
+                                        chunk=128, interpret=True, tile_origins=j(origins))
+    t = torch.from_numpy
+    (acc, tf), culled, gated = _schedule_rm(*map(t, args), tile, t(origins))
+    assert culled > 0 and gated > 0
+    np.testing.assert_allclose(acc[..., :3].numpy(), np.asarray(j_acc)[..., :3], atol=1e-5)
+    np.testing.assert_allclose(acc[..., 3].numpy(), np.asarray(j_acc)[..., 3], atol=1e-4)
+    np.testing.assert_allclose(tf.numpy(), np.asarray(j_tf), atol=1e-5)
+    assert float(tf.min()) < 2e-4  # some pixels terminated
+    # each backward replays its own forward's outputs
+    (dq, dc), _, _ = _schedule_rm(*map(t, args), tile, t(origins), (*map(t, cot), acc, tf))
+    live = np.ones((4, 256), bool)
+    live[1, n1:] = False
+    for name, g, w, lanes in (("dquad", dq.numpy(), np.asarray(j_dq), 6),
+                              ("dcolor", dc.numpy(), np.asarray(j_dc), 4)):
+        assert g.shape == w.shape and not g[~live].any(), name
+        for lane in range(lanes):
+            err = float(np.abs(g[..., lane] - w[..., lane])[live].max())
+            assert err <= 5e-4 * float(np.abs(w[..., lane][live]).max()), (name, lane, err)
+        assert not g[..., lanes:].any(), name
