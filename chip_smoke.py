@@ -94,14 +94,12 @@ RM_BWD_KERNELS = ("composite_tiles_bwd_v2", "composite_tiles_bwd")
 # the measuring kernels of the probe tools
 PROBE_KERNELS = ("composite_tiles_fwd_variant", "composite_tiles_bwd_variant", "tile_windows")
 ALL_KERNELS = FWD_KERNELS + BWD_KERNELS + RM_FWD_KERNELS + RM_BWD_KERNELS + PROBE_KERNELS
-# kernels 1-8 run the pair bodies of composite.cu / composite_bwd.cu, the
-# stage probes the one-pixel-a-thread templates of composite_rm.cu
+# kernels 1-8 run the pair bodies of composite.cu / composite_bwd.cu, and the
+# stage probes (9, 10) the same bodies under their variants' hooks
 KERNEL_SOURCE = {k: "exavatar_release_tpu_torch/csrc/composite.cu"
-                 for k in FWD_KERNELS + RM_FWD_KERNELS}
+                 for k in FWD_KERNELS + RM_FWD_KERNELS + PROBE_KERNELS[:1]}
 KERNEL_SOURCE.update({k: "exavatar_release_tpu_torch/csrc/composite_bwd.cu"
-                      for k in BWD_KERNELS + RM_BWD_KERNELS})
-KERNEL_SOURCE.update({k: "exavatar_release_tpu_torch/csrc/composite_rm.cu"
-                      for k in PROBE_KERNELS[:2]})
+                      for k in BWD_KERNELS + RM_BWD_KERNELS + PROBE_KERNELS[1:2]})
 KERNEL_SOURCE["tile_windows"] = "exavatar_release_tpu_torch/csrc/windows.cu"
 _PK = "exavatar_release_tpu/ops/rasterizer/pallas_kernels.py"
 REPLACES = {
@@ -1635,11 +1633,15 @@ def phase_train(device, steps=4, timing_iters=2, grow_to=1 << 16, start_kw=None,
 # --------------------------------------------------------------------------
 
 
-def rm_resources() -> dict:
-    """{(fwd|bwd, variant id): (registers, shared bytes)} of the LOCALIZE
-    instantiations of csrc/composite_rm.cu's two kernel templates."""
-    found = ptxas_resources("composite_rm", r"composite_rm_(fwd|bwd)_kernelILb1ELi(\d+)E")
-    return {(d, int(v)): r[:2] for (d, v), r in found.items()}
+def probe_resources() -> dict:
+    """{(fwd|bwd, variant id): (registers, shared bytes, spill stores, spill
+    loads, stack frame bytes)} of the stage probes' kernels, the variants'
+    instantiations of composite_tiles_{fwd,bwd}_variant_kernel<V>."""
+    out = {}
+    for lib in ("composite", "composite_bwd"):
+        found = ptxas_resources(lib, r"composite_tiles_(fwd|bwd)_variant_kernelILi(\d+)E")
+        out.update({(d, int(v)): r for (d, v), r in found.items()})
+    return out
 
 
 def windows_on_binning(screen, img, tile_shape, K, binning, max_pairs):
@@ -1665,18 +1667,19 @@ def phase_probes(device, n=100_000, check_tiles=16, iters=10, win_inputs=None) -
     """``tools.kvariants`` and ``tools.win_probe`` as a user runs them, at
     their defaults: every variant against its plain version on the first
     ``check_tiles`` tiles (forward 1e-5 of each output's max, backward each
-    row against its own max, GRAD_TOL), base (the probes' one-pixel-a-thread
-    design) bit-equal to kernel 5 and within 1e-6 of each row of kernel 6
-    (the pair bodies: another order of summation), every exact variant
+    row against its own max, GRAD_TOL), base (kernel 5's / 6's pair body,
+    launched as a probe) bit-equal to kernel 5 and within 1e-6 of each row
+    of kernel 6 (atomics: another order of summation), every exact variant
     within those limits of base; then, counters at 0 just before and read
     just after, the tools' timing runs on the whole scene, kernels 5 and 6
     timed beside base; the window kernel integer for integer against the
     binning's gather, at the tool's seeded inputs and on the scene's own
     binning; each variant's bound from its own plain version's visits on
-    the whole scene. Rows 9 and 10 of the kernels line take the mean launch
-    of all their variants, base included. ``win_inputs`` (starts, rank_pad,
-    K, n) replaces the tool's seeded window inputs (a rehearsal at a small
-    size)."""
+    the whole scene, and its delta against base logged as the attribution
+    of the pair body's stages, with its registers and spills. Rows 9 and 10
+    of the kernels line take the mean launch of all their variants, base
+    included. ``win_inputs`` (starts, rank_pad, K, n) replaces the tool's
+    seeded window inputs (a rehearsal at a small size)."""
     import torch
 
     from exavatar_release_tpu_torch.ops.rasterizer import binning as bnm
@@ -1736,8 +1739,8 @@ def phase_probes(device, n=100_000, check_tiles=16, iters=10, win_inputs=None) -
     base_b = kv.bwd("base", sub, cot, f5)
     r = rm_grad_rows(base_b, b6)
     check("bwd/base == composite_tiles_bwd with origins", r["max_row_rel_err"] <= 1e-6,
-          f"worst row {r['max_row_rel_err']:.3e} of its own max (order of summation: one "
-          f"pixel a thread against two, then the warp, and atomics; limit 1e-6)")
+          f"worst row {r['max_row_rel_err']:.3e} of its own max (the same code; atomics sum "
+          f"in another order; limit 1e-6)")
     for v in kn.BWD_VARIANTS:
         got = kv.bwd(v, sub, cot, f5)
         want = kv.bwd(v, sub, cot, f5, plain=True)
@@ -1816,7 +1819,7 @@ def phase_probes(device, n=100_000, check_tiles=16, iters=10, win_inputs=None) -
     live_w = int(torch.clamp(starts[1:].long() - starts[:-1].long(), max=wK).sum())
     w_bytes = 4 * (live_w + wT * wK + wT + 1) / PEAK_BYTES
     fw, bw = probe["fwd"], probe["bwd"]
-    regs = rm_resources()
+    regs = probe_resources()
     res["kernel_stats"] = {}
     mean = lambda xs: sum(xs) / len(xs)
     for d, times, name in (("fwd", fw, "composite_tiles_fwd_variant"),
@@ -1841,19 +1844,24 @@ def phase_probes(device, n=100_000, check_tiles=16, iters=10, win_inputs=None) -
     res["product_ms"] = probe["product"]
     for d, k in (("fwd", 5), ("bwd", 6)):
         p_ms, b_ms = probe["product"][d], probe[d]["base"]
-        log(f"[probes] kernel {k} (the pair body) {p_ms:.4f} ms against the probes' base (one "
-            f"pixel a thread) {b_ms:.4f} ms on the whole scene: {p_ms / b_ms:.3f}x; bound "
+        log(f"[probes] the probes' base {b_ms:.4f} ms against kernel {k} {p_ms:.4f} ms (the same "
+            f"pair body) on the whole scene: {b_ms / p_ms:.4f}x; bound "
             f"{bound(f'{d}/base')[0]:.6f} ms")
+    # the attribution of the pair body's stages: each variant against base
     for d, times in (("fwd", fw), ("bwd", bw)):
         b_ms, b_work = times["base"], work[f"{d}/base"]
         for k, v in times.items():
             w = work[f"{d}/{k}"]
             extra = f", {hits[f'{d}/{k}']} contributing" if d == "bwd" else ""
+            rs = regs.get((d, kn.VARIANT_IDS[k]))
+            spills = "" if rs is None or rs[2] + rs[3] == 0 else " SPILLS (delta distorted)"
             log(f"[probes] {d}/{k}: {v:.4f} ms ({v - b_ms:+.4f} = {100 * (v / b_ms - 1):+.1f}% "
                 f"of base), {w} visits{extra} ({w / b_work:.3f} x base), {1e9 * v / w:.4f} ps "
                 f"per visit ({100 * ((v / w) / (b_ms / b_work) - 1):+.1f}% of base's); bound "
-                f"{bound(f'{d}/{k}')[0]:.6f} ms; registers, shared bytes "
-                f"{regs.get((d, kn.VARIANT_IDS[k]))}; plain {plain_ms[f'{d}/{k}']:.1f} ms")
+                f"{bound(f'{d}/{k}')[0]:.6f} ms; registers, shared bytes, spill stores, spill "
+                f"loads, stack bytes {rs}{spills}; plain {plain_ms[f'{d}/{k}']:.1f} ms")
+    log(f"[probes] the reduction over pixels (base - nograd) is "
+        f"{100 * (1 - bw['nograd'] / bw['base']):.1f}% of the backward's base")
     res["kernel_stats"]["composite_tiles_fwd_variant"]["variants_visits"] = {
         k: work[f"fwd/{k}"] for k in fw}
     res["kernel_stats"]["composite_tiles_bwd_variant"]["variants_visits"] = {

@@ -60,11 +60,16 @@
 // when both its pixels are done, the block when all are. The grid is
 // one-dimensional, pair_blocks(th, tw) adjacent blocks a tile.
 //
+// The stage probes of kernel 5 (composite_tiles_fwd_variant_kernel<V>,
+// replacing the Pallas kernel of tools/kvariants.py build_fwd) launch kernel
+// 5's grid on this body under a variant V: `if constexpr` hooks that stub or
+// reformulate one stage, described in composite_probes.cuh.
+//
 // The thresholds, the row staging and the blend of one Gaussian at one pixel
 // are in composite_common.cuh, which the backward kernels share. Build with
 // -fmad=false and without fast math (see there).
 
-#include "composite_common.cuh"
+#include "composite_probes.cuh"
 
 namespace {
 
@@ -75,8 +80,10 @@ using namespace composite;
 // the tile). kConicCM: a channel-major table (stride), out_tile (5, P) over
 // the background bg. Row-major kinds: a tile's rows (rows = quad (K, 8),
 // color (K, 4), begin 0; packed rows at origin (0, 0)), out_tile = accum (P,
-// 4) and tf_tile = tfinal (P,).
-template <RowKind KIND>
+// 4) and tf_tile = tfinal (P,). V: a stage probe's variant
+// (composite_probes.cuh), on global conic row-major rows only; at kBase
+// every hook below folds away.
+template <RowKind KIND, int V = kBase>
 __device__ __forceinline__ void composite_pairs_range(const float* __restrict__ rows,
                                                      const float* __restrict__ color,
                                                      long long stride, int blk, long long begin,
@@ -86,7 +93,12 @@ __device__ __forceinline__ void composite_pairs_range(const float* __restrict__ 
                                                      float* __restrict__ tf_tile) {
   constexpr int R = kPairsR;
   constexpr bool PACKED = packed_q(KIND);
-  __shared__ RowsOf<KIND> s;
+  static_assert(V == kBase || KIND == RowKind::kConicRM,
+                "the stage probes run on global conic row-major rows");
+  constexpr bool PIPE = V == kPipe;
+  constexpr bool STUB = V == kNoExp;
+  // pipe: the batch that blends and the next one
+  __shared__ RowsOf<KIND> s_buf[PIPE ? 2 : 1];
   const int P = th * tw;
   const PairPixels pp = pair_pixels(blk, tw, ox, oy);
   const float px = (float)pp.x + ox;
@@ -104,6 +116,7 @@ __device__ __forceinline__ void composite_pairs_range(const float* __restrict__ 
     }
   }
 
+  // T: logsp its log; the chunk forms T0, at the chunk's start, and done there
   bool done[R];
   float T[R], c0[R], c1[R], c2[R], c3[R];
   bool all_done = true;
@@ -111,48 +124,156 @@ __device__ __forceinline__ void composite_pairs_range(const float* __restrict__ 
   for (int r = 0; r < R; ++r) {
     done[r] = pp.x >= tw || pp.y + r >= th;
     all_done = all_done && done[r];
-    T[r] = 1.0f;
+    T[r] = kLogT<V> ? 0.0f : 1.0f;
     c0[r] = c1[r] = c2[r] = c3[r] = 0.0f;
   }
-  for (int b = 0; b < n; b += kBlock) {
+  [[maybe_unused]] ConicRowRegs next;  // pipe: this thread's row of the next batch
+  if constexpr (PIPE)
+    stage_rows<KIND>(s_buf[0], rows, color, stride, begin, threadIdx.x, n, th, tw);
+  for (int b = 0, buf = 0; b < n; b += kBlock, buf ^= 1) {
+    RowsOf<KIND>& s = s_buf[PIPE ? buf : 0];
     // barrier before overwriting the batch; also the block's exit test
-    if (__syncthreads_count(all_done) == kBlock) break;
-    stage_rows<KIND>(s, rows, color, stride, begin, b + threadIdx.x, n, th, tw);
-    __syncthreads();
+    if constexpr (V == kNoSkip) {
+      __syncthreads();
+    } else if (__syncthreads_count(all_done) == kBlock) {
+      break;
+    }
+    if constexpr (PIPE) {
+      load_conic_rm_row(next, rows, color, b + kBlock + threadIdx.x, n);
+    } else {
+      stage_rows<KIND>(s, rows, color, stride, begin, b + threadIdx.x, n, th, tw);
+      __syncthreads();
+    }
     const int m = min(kBlock, n - b);
-    for (int j = 0; !all_done && j < m; ++j) {
-      if (misses(s.box[j], pp.patch)) continue;
-      const float4 g = s.lo[j];
-      const auto h = s.hi[j];
-      const float4 col = s.col[j];
+    if constexpr (kChunked<V>) {
+      // the chunk's sums of wlog (all, and of the rows not dead); the dead of
+      // the last row a pixel evaluated, and whether that row ends the chunk
+      float cum[R], kept[R];
+      bool dead[R], last[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        cum[r] = kept[r] = 0.0f;
+        dead[r] = last[r] = false;
+      }
+      // all_done stays the chunk start's: no pixel ends inside the chunk
+      for (int j = 0; !all_done && j < m; ++j) {
+        if (misses(s.box[j], pp.patch)) continue;
+        const float4 g = s.lo[j];
+        const float2 h = s.hi[j];
+        const float4 col = s.col[j];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (done[r]) continue;
+          float dx, dy;
+          const float q = conic_q(g.x, g.y, g.z, g.w, h.x, h.y, px, py[r], dx, dy);
+          if (q < kQGate) continue;
+          const float e = exp_v<STUB>(q);
+          if (!(q <= h.y && e >= kAlphaMin)) continue;
+          const float alpha = clamped(e);
+          const float wlog = log1p_v<STUB>(-alpha);
+          const float T_raw = exp_v<STUB>(V == kNoMM ? wlog : cum[r]) * T[r];
+          dead[r] = ends_pixel(T_raw * (1.0f - alpha));
+          last[r] = j == m - 1;
+          cum[r] = cum[r] + wlog;
+          if (dead[r]) continue;
+          const float w = alpha * T_raw;
+          c0[r] = c0[r] + w * col.x;
+          c1[r] = c1[r] + w * col.y;
+          c2[r] = c2[r] + w * col.z;
+          c3[r] = c3[r] + w * col.w;
+          kept[r] = kept[r] + wlog;
+        }
+      }
+      // the chunk's end; a last row the pixel skipped has alpha = 0
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (done[r]) continue;
-        float alpha_un;
-        if constexpr (PACKED) {
-          if (!reaches_packed_gated(g, h, px, py[r], xx, xy[r], yy[r], alpha_un)) continue;
-        } else {
-          float dx, dy;
-          if (!reaches_gated(g.x, g.y, g.z, g.w, h.x, h.y, px, py[r], dx, dy, alpha_un))
-            continue;
-        }
-        const float alpha = clamped(alpha_un);
-        const float test_T = T[r] * (1.0f - alpha);
-        if (ends_pixel(test_T)) {
-          done[r] = true;
-          continue;
-        }
-        const float w = alpha * T[r];
-        c0[r] = c0[r] + w * col.x;
-        c1[r] = c1[r] + w * col.y;
-        c2[r] = c2[r] + w * col.z;
-        c3[r] = c3[r] + w * col.w;
-        T[r] = test_T;
+        if (!last[r]) dead[r] = ends_pixel(V == kNoMM ? T[r] : exp_v<STUB>(cum[r]) * T[r]);
+        T[r] = T[r] * exp_v<STUB>(kept[r]);
+        done[r] = dead[r];
       }
       all_done = true;
 #pragma unroll
       for (int r = 0; r < R; ++r) all_done = all_done && done[r];
+    } else if constexpr (V == kNoSkip) {
+      for (int j = 0; j < m; ++j) {
+        const float4 g = s.lo[j];
+        const float2 h = s.hi[j];
+        const float4 col = s.col[j];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          float dx, dy;
+          const float q = conic_q(g.x, g.y, g.z, g.w, h.x, h.y, px, py[r], dx, dy);
+          const float alpha_un = expf(q);
+          const bool hit = q <= h.y && alpha_un >= kAlphaMin && !done[r];
+          const float alpha = clamped(alpha_un);
+          const float test_T = T[r] * (1.0f - alpha);
+          const bool end = hit && ends_pixel(test_T);
+          const bool add = hit && !end;
+          done[r] = done[r] || end;
+          const float w = add ? alpha * T[r] : 0.0f;
+          c0[r] = c0[r] + w * col.x;
+          c1[r] = c1[r] + w * col.y;
+          c2[r] = c2[r] + w * col.z;
+          c3[r] = c3[r] + w * col.w;
+          T[r] = add ? test_T : T[r];
+        }
+      }
+    } else {
+      for (int j = 0; !all_done && j < m; ++j) {
+        if (misses(s.box[j], pp.patch)) continue;
+        const float4 g = s.lo[j];
+        const auto h = s.hi[j];
+        const float4 col = s.col[j];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (done[r]) continue;
+          if constexpr (kLogT<V>) {
+            float dx, dy;
+            const float q = conic_q(g.x, g.y, g.z, g.w, h.x, h.y, px, py[r], dx, dy);
+            if (q < kQGate) continue;
+            const float alpha_un = expf(q);
+            if (!(q <= h.y && alpha_un >= kAlphaMin)) continue;
+            const float wl = log1pf(-clamped(alpha_un));
+            if (T[r] + wl < kLnTermEps) {
+              done[r] = true;
+              continue;
+            }
+            const float w = expf(fminf(q, kLnAlphaMax) + T[r]);
+            c0[r] = c0[r] + w * col.x;
+            c1[r] = c1[r] + w * col.y;
+            c2[r] = c2[r] + w * col.z;
+            c3[r] = c3[r] + w * col.w;
+            T[r] = T[r] + wl;
+          } else {
+            float alpha_un;
+            if constexpr (PACKED) {
+              if (!reaches_packed_gated(g, h, px, py[r], xx, xy[r], yy[r], alpha_un)) continue;
+            } else {
+              float dx, dy;
+              if (!reaches_gated(g.x, g.y, g.z, g.w, h.x, h.y, px, py[r], dx, dy, alpha_un))
+                continue;
+            }
+            const float alpha = clamped(alpha_un);
+            const float test_T = T[r] * (1.0f - alpha);
+            if (ends_pixel(test_T)) {
+              done[r] = true;
+              continue;
+            }
+            const float w = alpha * T[r];
+            c0[r] = c0[r] + w * col.x;
+            c1[r] = c1[r] + w * col.y;
+            c2[r] = c2[r] + w * col.z;
+            c3[r] = c3[r] + w * col.w;
+            T[r] = test_T;
+          }
+        }
+        all_done = true;
+#pragma unroll
+        for (int r = 0; r < R; ++r) all_done = all_done && done[r];
+      }
     }
+    if constexpr (PIPE) store_conic_rm_row(s_buf[buf ^ 1], next, b + kBlock + threadIdx.x, n);
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -161,7 +282,7 @@ __device__ __forceinline__ void composite_pairs_range(const float* __restrict__ 
     const int i = y * tw + x;
     if constexpr (row_major(KIND)) {
       reinterpret_cast<float4*>(out_tile)[i] = make_float4(c0[r], c1[r], c2[r], c3[r]);
-      tf_tile[i] = T[r];
+      tf_tile[i] = kLogT<V> ? expf(T[r]) : T[r];
     } else {
       out_tile[0 * P + i] = c0[r] + T[r] * bg[0];
       out_tile[1 * P + i] = c1[r] + T[r] * bg[1];
@@ -237,6 +358,36 @@ composite_tiles_fwd_kernel(const float* __restrict__ quad, const float* __restri
                                            th, tw, nullptr, accum + t * P * 4, tfinal + t * P);
 }
 
+// Stage probe V (composite_probes.cuh) of kernel 5: kernel 5's grid and
+// arguments, and its body under V. V = kBase is kernel 5's code.
+template <int V>
+__global__ void __launch_bounds__(kBlock, 2)
+composite_tiles_fwd_variant_kernel(const float* __restrict__ quad,
+                                   const float* __restrict__ color,
+                                   const int* __restrict__ counts,
+                                   const float* __restrict__ origins, float* __restrict__ accum,
+                                   float* __restrict__ tfinal, int K, int th, int tw) {
+  const int nb = pair_blocks(th, tw);
+  const int t = blockIdx.x / nb;
+  const int blk = blockIdx.x - t * nb;
+  const long long P = (long long)th * tw;
+  composite_pairs_range<RowKind::kConicRM, V>(quad + (long long)t * K * 8,
+                                              color + (long long)t * K * 4, 0, blk, 0,
+                                              min(counts[t], K), origins[2 * t],
+                                              origins[2 * t + 1], th, tw, nullptr,
+                                              accum + t * P * 4, tfinal + t * P);
+}
+
+template <int V>
+int launch_fwd_variant(const float* quad, const float* color, const int* counts,
+                       const float* origins, float* accum, float* tfinal, int T, int K, int th,
+                       int tw, void* stream) {
+  const dim3 grid(T * pair_blocks(th, tw));
+  composite_tiles_fwd_variant_kernel<V><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      quad, color, counts, origins, accum, tfinal, K, th, tw);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -289,6 +440,29 @@ int composite_tiles_fwd(const float* quad, const float* color, const int* counts
   composite_tiles_fwd_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       quad, color, counts, origins, accum, tfinal, K, th, tw);
   return (int)cudaGetLastError();
+}
+
+// The stage probes of kernel 5 under `variant` (composite_probes.cuh enum
+// Variant; kBase is kernel 5 itself, launched as a probe): the arguments of
+// composite_tiles_fwd with origins, which must be given. Every pointer
+// 16-byte aligned. Returns cudaGetLastError() after the launch; a variant
+// the forward has not returns cudaErrorInvalidValue.
+int composite_rm_fwd_variant(int variant, const float* quad, const float* color, const int* counts,
+                             const float* origins, float* accum, float* tfinal, int T, int K,
+                             int th, int tw, void* stream) {
+#define FWD(V) \
+  launch_fwd_variant<V>(quad, color, counts, origins, accum, tfinal, T, K, th, tw, stream)
+  switch (variant) {
+    case kBase: return FWD(kBase);
+    case kNoExp: return FWD(kNoExp);
+    case kNoMM: return FWD(kNoMM);
+    case kNoSkip: return FWD(kNoSkip);
+    case kLogSp: return FWD(kLogSp);
+    case kPipe: return FWD(kPipe);
+    case kChunk: return FWD(kChunk);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FWD
 }
 
 }  // extern "C"

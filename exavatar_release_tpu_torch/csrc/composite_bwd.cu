@@ -58,10 +58,11 @@
 // arrive zeroed. Atomics make the order of summation differ from run to
 // run: the result agrees with the plain PyTorch version within float32
 // summation error, not bit for bit.
-// The time goes to the reduction over pixels (half of it in the stage
-// probes' one-pixel-a-thread design, composite_rm.cu): not to the instruction
-// count of one reduction but to their number, one ballot, a five-deep
-// shuffle chain and a shared atomic per (warp, row) hit. So the body
+// The time went to the reduction over pixels (half of it in the
+// one-pixel-a-thread design this body replaced, as the stage probes measured
+// it; PERF.md): not to the instruction count of one reduction but to their
+// number, one ballot, a five-deep shuffle chain and a shared atomic per
+// (warp, row) hit. So the body
 // reduces few times, with the forward's schedule (composite.cu): a thread
 // owns R = kPairsR = 2 pixels of a compact warp patch and first adds its
 // two pixels' ten values in registers, so one warp reduction serves 64
@@ -76,17 +77,20 @@
 // per live row written: bound by operations at the avatar's shapes (PERF.md
 // holds the bound and the measured times).
 //
+// The stage probes of kernel 6 (composite_tiles_bwd_variant_kernel<V>,
+// replacing the Pallas kernel of tools/kvariants.py build_bwd) launch kernel
+// 6's grid on this body under a variant V: `if constexpr` hooks that stub or
+// reformulate one stage, described in composite_probes.cuh.
+//
 // Build with -fmad=false and without fast math, like composite.cu: the
 // replay must take the forward's skip and termination decisions, which sit
 // on thresholds that see last bits.
 
-#include "composite_common.cuh"
+#include "composite_probes.cuh"
 
 namespace {
 
 using namespace composite;
-
-constexpr unsigned kFullWarp = 0xffffffffu;
 
 // Gradient of rows [begin, begin + n) of a row table from the pixels of one
 // tile, kPairsR pixels a thread (pair_pixels, blk the block's index within
@@ -95,7 +99,9 @@ constexpr unsigned kFullWarp = 0xffffffffu;
 // rows (rows = quad (K, 8), color (K, 4), begin 0; packed rows at origin (0,
 // 0)), full_tile = accum (P, 4), gfull_tile = g_accum (P, 4), tf_tile =
 // tfinal (P,), gtf_tile = g_tfinal (P,), drows = dquad (K, 8), dcolor (K, 4).
-template <RowKind KIND>
+// V: a stage probe's variant (composite_probes.cuh), on global conic
+// row-major rows only; at kBase every hook below folds away.
+template <RowKind KIND, int V = kBase>
 __device__ __forceinline__ void composite_pairs_range_bwd(
     const float* __restrict__ rows, const float* __restrict__ color, long long stride, int blk,
     long long begin, int n, float ox, float oy, int th, int tw, const float* __restrict__ bg,
@@ -105,7 +111,14 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
   constexpr int R = kPairsR;
   constexpr bool PACKED = packed_q(KIND);
   constexpr bool RM = row_major(KIND);
-  __shared__ RowsOf<KIND> s;
+  static_assert(V == kBase || KIND == RowKind::kConicRM,
+                "the stage probes run on global conic row-major rows");
+  constexpr bool PIPE = V == kPipe;
+  constexpr bool CHUNKED = kChunked<V>;
+  constexpr bool STUB = V == kNoExp;
+  constexpr bool LOG = kLogT<V>;
+  // pipe: the batch that replays and the next one
+  __shared__ RowsOf<KIND> s_buf[PIPE ? 2 : 1];
   __shared__ float acc[kChannels][kBlock];
   // the warp's patch bounds, read with each row's box: kept in registers
   // they took the kernel to 72 registers and 3 blocks an SM
@@ -129,6 +142,7 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
     }
   }
 
+  // T: logsp its log; the chunk forms T0, prefix and done at the chunk's start
   bool done[R];
   float g0[R], g1[R], g2[R], g3[R], A_p[R], T[R], prefix[R];
   bool all_done = true;
@@ -143,7 +157,7 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
     const int x = pp.x, y = pp.y + r;
     done[r] = x >= tw || y >= th;
     all_done = all_done && done[r];
-    T[r] = 1.0f;
+    T[r] = LOG ? 0.0f : 1.0f;
     prefix[r] = 0.0f;
     g0[r] = g1[r] = g2[r] = g3[r] = A_p[r] = 0.0f;
     if (done[r]) continue;
@@ -171,16 +185,41 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
     }
   }
 
-  for (int b = 0; b < n; b += kBlock) {
+  [[maybe_unused]] float sink = 0.0f;  // nograd: keeps the replay's results alive
+  [[maybe_unused]] ConicRowRegs next;  // pipe: this thread's row of the next batch
+  if constexpr (PIPE) {
+    stage_rows<KIND>(s_buf[0], rows, color, stride, begin, threadIdx.x, n, th, tw);
+#pragma unroll
+    for (int c = 0; c < kChannels; ++c) acc[c][threadIdx.x] = 0.0f;
+  }
+  for (int b = 0, buf = 0; b < n; b += kBlock, buf ^= 1) {
+    RowsOf<KIND>& s = s_buf[PIPE ? buf : 0];
     // barrier before overwriting the batch; also the block's exit test
     if (__syncthreads_count(all_done) == kBlock) break;
     const int k = b + threadIdx.x;
-    stage_rows<KIND>(s, rows, color, stride, begin, k, n, th, tw);
+    if constexpr (PIPE) {
+      load_conic_rm_row(next, rows, color, k + kBlock, n);
+    } else {
+      stage_rows<KIND>(s, rows, color, stride, begin, k, n, th, tw);
 #pragma unroll
-    for (int c = 0; c < kChannels; ++c) acc[c][threadIdx.x] = 0.0f;
-    __syncthreads();
+      for (int c = 0; c < kChannels; ++c) acc[c][threadIdx.x] = 0.0f;
+      __syncthreads();
+    }
     const int m = min(kBlock, n - b);
+    // the chunk forms: the chunk's sums of wlog (all, and of the rows not
+    // dead) and its prefix carry (nomm: the last row's w cg); the dead of
+    // the last row a pixel evaluated, and whether that row ends the chunk
+    [[maybe_unused]] float cum[R], kept[R], carry[R];
+    [[maybe_unused]] bool dead[R], last[R];
+    if constexpr (CHUNKED) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        cum[r] = kept[r] = carry[r] = 0.0f;
+        dead[r] = last[r] = false;
+      }
+    }
     for (int j = 0; j < m; ++j) {
+      // the chunk forms: all_done stays the chunk start's
       if (__all_sync(kFullWarp, all_done)) break;
       // warp-uniform: every lane reads the same box and patch
       if (misses(s.box[j], patch[threadIdx.x >> 5])) continue;
@@ -194,64 +233,126 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (done[r]) continue;
-        float dx, dy, alpha_un;
-        if constexpr (PACKED) {
-          if (!reaches_packed_gated(g, h, px, py[r], xx, xy[r], yy[r], alpha_un)) continue;
+        float dx, dy, alpha_un, w, dq;
+        if constexpr (CHUNKED) {
+          const float q = conic_q(g.x, g.y, g.z, g.w, h.x, h.y, px, py[r], dx, dy);
+          if (q < kQGate) continue;
+          alpha_un = exp_v<STUB>(q);
+          if (!(q <= h.y && alpha_un >= kAlphaMin)) continue;
+          const float alpha = clamped(alpha_un);
+          const float wlog = log1p_v<STUB>(-alpha);
+          const float T_raw = exp_v<STUB>(V == kNoMM ? wlog : cum[r]) * T[r];
+          dead[r] = ends_pixel(T_raw * (1.0f - alpha));
+          last[r] = j == m - 1;
+          cum[r] = cum[r] + wlog;
+          if (dead[r]) continue;
+          hit = true;
+          w = alpha * T_raw;
+          const float cg = g0[r] * col.x + g1[r] * col.y + g2[r] * col.z + g3[r] * col.w;
+          float P_incl;
+          if constexpr (V == kNoMM) {
+            P_incl = prefix[r] + w * cg;
+            if (j == m - 1) carry[r] = w * cg;
+          } else {
+            carry[r] = carry[r] + w * cg;
+            P_incl = prefix[r] + carry[r];
+          }
+          dq = (T_raw * cg - (A_p[r] - P_incl) / (1.0f - alpha)) * alpha_un;
+          kept[r] = kept[r] + wlog;
         } else {
-          if (!reaches_gated(g.x, g.y, g.z, g.w, h.x, h.y, px, py[r], dx, dy, alpha_un))
+          if constexpr (PACKED) {
+            if (!reaches_packed_gated(g, h, px, py[r], xx, xy[r], yy[r], alpha_un)) continue;
+          } else {
+            if (!reaches_gated(g.x, g.y, g.z, g.w, h.x, h.y, px, py[r], dx, dy, alpha_un))
+              continue;
+          }
+          const float alpha = clamped(alpha_un);
+          const float one_m = 1.0f - alpha;
+          const float test_T = LOG ? T[r] + log1pf(-alpha) : T[r] * one_m;
+          if (LOG ? test_T < kLnTermEps : ends_pixel(test_T)) {
+            done[r] = true;
             continue;
+          }
+          hit = true;
+          const float T_c = LOG ? expf(T[r]) : T[r];
+          w = alpha * T_c;
+          const float cg = g0[r] * col.x + g1[r] * col.y + g2[r] * col.z + g3[r] * col.w;
+          prefix[r] = prefix[r] + w * cg;
+          const float dalpha = T_c * cg - (A_p[r] - prefix[r]) / one_m;
+          dq = dalpha * alpha_un;
+          T[r] = test_T;
         }
-        const float alpha = clamped(alpha_un);
-        const float one_m = 1.0f - alpha;
-        const float test_T = T[r] * one_m;
-        if (ends_pixel(test_T)) {
-          done[r] = true;
-          continue;
-        }
-        hit = true;
-        const float w = alpha * T[r];
-        const float cg = g0[r] * col.x + g1[r] * col.y + g2[r] * col.z + g3[r] * col.w;
-        prefix[r] = prefix[r] + w * cg;
-        const float dalpha = T[r] * cg - (A_p[r] - prefix[r]) / one_m;
-        const float dq = dalpha * alpha_un;
-        if constexpr (PACKED) {
-          v[0] += dq;
-          v[1] += dq * px;
-          v[2] += dq * py[r];
-          v[3] += dq * xx;
-          v[4] += dq * xy[r];
-          v[5] += dq * yy[r];
+        if constexpr (V == kNoGrad) {
+          sink = sink + dq + w;
         } else {
-          v[0] += -0.5f * (dx * dx) * dq;
-          v[1] += -(dx * dy) * dq;
-          v[2] += -0.5f * (dy * dy) * dq;
-          v[3] += (g.x * dx + g.y * dy) * dq;
-          v[4] += (g.y * dx + g.z * dy) * dq;
-          v[5] += dq;
+          if constexpr (PACKED) {
+            v[0] += dq;
+            v[1] += dq * px;
+            v[2] += dq * py[r];
+            v[3] += dq * xx;
+            v[4] += dq * xy[r];
+            v[5] += dq * yy[r];
+          } else if constexpr (V == kNoDeloc) {
+            // the packed basis at the tile-local pixel
+            const float lx = (float)pp.x, ly = (float)(pp.y + r);
+            v[0] += dq;
+            v[1] += dq * lx;
+            v[2] += dq * ly;
+            v[3] += dq * (lx * lx);
+            v[4] += dq * (lx * ly);
+            v[5] += dq * (ly * ly);
+          } else {
+            v[0] += -0.5f * (dx * dx) * dq;
+            v[1] += -(dx * dy) * dq;
+            v[2] += -0.5f * (dy * dy) * dq;
+            v[3] += (g.x * dx + g.y * dy) * dq;
+            v[4] += (g.y * dx + g.z * dy) * dq;
+            v[5] += dq;
+          }
+          v[6] += w * g0[r];
+          v[7] += w * g1[r];
+          v[8] += w * g2[r];
+          v[9] += w * g3[r];
         }
-        v[6] += w * g0[r];
-        v[7] += w * g1[r];
-        v[8] += w * g2[r];
-        v[9] += w * g3[r];
-        T[r] = test_T;
       }
       all_done = true;
 #pragma unroll
       for (int r = 0; r < R; ++r) all_done = all_done && done[r];
-      // warp-uniform: skip the reduction of a row no pixel of the warp hits
-      if (__ballot_sync(kFullWarp, hit) == 0u) continue;
+      if constexpr (V == kFusedGrad) {
+        reduce_butterfly(v, hit, acc, j, lane);
+      } else if constexpr (V == kNoT || V == kNoTLogSp) {
+        __shared__ float xs[kWarps][kChannels][33];  // each warp's transpose
+        reduce_transpose(v, hit, acc, xs[threadIdx.x >> 5], j, lane);
+      } else if constexpr (V != kNoGrad) {
+        // warp-uniform: skip the reduction of a row no pixel of the warp hits
+        if (__ballot_sync(kFullWarp, hit) == 0u) continue;
 #pragma unroll
-      for (int c = 0; c < kChannels; ++c) {
+        for (int c = 0; c < kChannels; ++c) {
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v[c] += __shfl_down_sync(kFullWarp, v[c], off);
-      }
-      if (lane == 0) {
+          for (int off = 16; off > 0; off >>= 1) v[c] += __shfl_down_sync(kFullWarp, v[c], off);
+        }
+        if (lane == 0) {
 #pragma unroll
-        for (int c = 0; c < kChannels; ++c) atomicAdd(&acc[c][j], v[c]);
+          for (int c = 0; c < kChannels; ++c) atomicAdd(&acc[c][j], v[c]);
+        }
       }
     }
+    if constexpr (CHUNKED) {
+      // the chunk's end; a last row the pixel skipped has alpha = 0
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (done[r]) continue;
+        if (!last[r]) dead[r] = ends_pixel(V == kNoMM ? T[r] : exp_v<STUB>(cum[r]) * T[r]);
+        T[r] = T[r] * exp_v<STUB>(kept[r]);
+        prefix[r] = prefix[r] + carry[r];
+        done[r] = dead[r];
+      }
+      all_done = true;
+#pragma unroll
+      for (int r = 0; r < R; ++r) all_done = all_done && done[r];
+    }
     __syncthreads();
-    if (k < n) {
+    if (V != kNoGrad && k < n) {
       if constexpr (RM) {
         float* dq = drows + (long long)k * 8;
         float* dc = dcolor + (long long)k * 4;
@@ -271,7 +372,13 @@ __device__ __forceinline__ void composite_pairs_range_bwd(
         }
       }
     }
+    if constexpr (PIPE) {
+#pragma unroll
+      for (int c = 0; c < kChannels; ++c) acc[c][threadIdx.x] = 0.0f;
+      store_conic_rm_row(s_buf[buf ^ 1], next, k + kBlock, n);
+    }
   }
+  if constexpr (V == kNoGrad) keep_alive(sink, drows);
 }
 
 // All four kernels: 4 blocks an SM (64 registers for the pair-major one, no
@@ -358,6 +465,43 @@ composite_tiles_bwd_kernel(const float* __restrict__ quad, const float* __restri
                                                dcolor + rows4);
 }
 
+// Stage probe V (composite_probes.cuh) of kernel 6: kernel 6's grid and
+// arguments, and its body under V. V = kBase is kernel 6's code.
+template <int V>
+__global__ void __launch_bounds__(kBlock, 4)
+composite_tiles_bwd_variant_kernel(const float* __restrict__ quad,
+                                   const float* __restrict__ color,
+                                   const int* __restrict__ counts,
+                                   const float* __restrict__ origins,
+                                   const float* __restrict__ g_accum,
+                                   const float* __restrict__ g_tfinal,
+                                   const float* __restrict__ accum,
+                                   const float* __restrict__ tfinal, float* __restrict__ dquad,
+                                   float* __restrict__ dcolor, int K, int th, int tw) {
+  const int nb = pair_blocks(th, tw);
+  const int t = blockIdx.x / nb;
+  const int blk = blockIdx.x - t * nb;
+  const long long P = (long long)th * tw;
+  const long long rows8 = (long long)t * K * 8, rows4 = (long long)t * K * 4;
+  composite_pairs_range_bwd<RowKind::kConicRM, V>(quad + rows8, color + rows4, 0, blk, 0,
+                                                  min(counts[t], K), origins[2 * t],
+                                                  origins[2 * t + 1], th, tw, nullptr,
+                                                  accum + t * P * 4, g_accum + t * P * 4,
+                                                  tfinal + t * P, g_tfinal + t * P,
+                                                  dquad + rows8, dcolor + rows4);
+}
+
+template <int V>
+int launch_bwd_variant(const float* quad, const float* color, const int* counts,
+                       const float* origins, const float* g_accum, const float* g_tfinal,
+                       const float* accum, const float* tfinal, float* dquad, float* dcolor,
+                       int T, int K, int th, int tw, void* stream) {
+  const dim3 grid(T * pair_blocks(th, tw));
+  composite_tiles_bwd_variant_kernel<V><<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+      quad, color, counts, origins, g_accum, g_tfinal, accum, tfinal, dquad, dcolor, K, th, tw);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -417,6 +561,36 @@ int composite_tiles_bwd(const float* quad, const float* color, const int* counts
   composite_tiles_bwd_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
       quad, color, counts, origins, g_accum, g_tfinal, accum, tfinal, dquad, dcolor, K, th, tw);
   return (int)cudaGetLastError();
+}
+
+// The stage probes of kernel 6 under `variant` (composite_probes.cuh enum
+// Variant; kBase is kernel 6 itself, launched as a probe): the arguments of
+// composite_tiles_bwd with origins, which must be given; dquad and dcolor
+// zeroed by the caller. Every pointer 16-byte aligned. Returns
+// cudaGetLastError() after the launch; an unknown variant returns
+// cudaErrorInvalidValue.
+int composite_rm_bwd_variant(int variant, const float* quad, const float* color, const int* counts,
+                             const float* origins, const float* g_accum, const float* g_tfinal,
+                             const float* accum, const float* tfinal, float* dquad, float* dcolor,
+                             int T, int K, int th, int tw, void* stream) {
+#define BWD(V)                                                                            \
+  launch_bwd_variant<V>(quad, color, counts, origins, g_accum, g_tfinal, accum, tfinal, \
+                        dquad, dcolor, T, K, th, tw, stream)
+  switch (variant) {
+    case kBase: return BWD(kBase);
+    case kNoExp: return BWD(kNoExp);
+    case kNoMM: return BWD(kNoMM);
+    case kLogSp: return BWD(kLogSp);
+    case kPipe: return BWD(kPipe);
+    case kNoGrad: return BWD(kNoGrad);
+    case kFusedGrad: return BWD(kFusedGrad);
+    case kNoT: return BWD(kNoT);
+    case kNoDeloc: return BWD(kNoDeloc);
+    case kNoTLogSp: return BWD(kNoTLogSp);
+    case kChunk: return BWD(kChunk);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BWD
 }
 
 }  // extern "C"

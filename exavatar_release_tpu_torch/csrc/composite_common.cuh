@@ -1,8 +1,8 @@
-// What the compositing kernels must share to the last bit (composite.cu,
-// composite_bwd.cu and the stage probes of composite_rm.cu): the block size,
+// What the compositing kernels must share to the last bit (composite.cu and
+// composite_bwd.cu: kernels 1-8 and the stage probes 9, 10): the block size,
 // renderCUDA's thresholds, and the skip, clamp and termination rules of one
 // Gaussian at one pixel; then the schedule of the pair bodies that every
-// product kernel runs (kernels 1-8: the row tables they take, the staging of
+// kernel runs (the row tables they take, the staging of
 // rows in shared memory with their pixel boxes, the pixels of a thread and
 // the patch of its warp, the exp gate). The backward replays the forward
 // from its saved output, and its `A_p - P_i` cancels only if both take the
@@ -32,42 +32,21 @@ constexpr int kChannels = 10;  // used channels of a row: 0-5 and 8-11
 constexpr float kAlphaMin = (float)(1.0 / 255.0);
 constexpr float kAlphaMax = (float)0.99;
 constexpr float kTermEps = (float)1e-4;
-
-// The stage probes (composite_rm.cu) stage rows as s[.][j] and test them
-// with the two functions below.
-//
-// Staged Gaussian j at pixel (px, py), in the direct conic form:
-//   q = log_op - 0.5 (A dx^2 + C dy^2) - B dx dy,  dx = px - gx, dy = py - gy
-__device__ __forceinline__ float conic_q(float (*s)[kBlock], int j, float px, float py,
-                                         float& dx, float& dy) {
-  const float A = s[0][j], B = s[1][j], C = s[2][j];
-  dx = px - s[3][j];
-  dy = py - s[4][j];
-  return s[5][j] - 0.5f * (A * (dx * dx) + C * (dy * dy)) - B * (dx * dy);
-}
-
-// Returns false when the pixel skips staged Gaussian j (q > log_op, or
-// exp(q) < 1/255); else dx, dy and alpha_un = exp(q), the alpha before its
-// clamp.
-__device__ __forceinline__ bool reaches(float (*s)[kBlock], int j, float px, float py,
-                                        float& dx, float& dy, float& alpha_un) {
-  const float q = conic_q(s, j, px, py, dx, dy);
-  alpha_un = expf(q);
-  return (q <= s[5][j]) && (alpha_un >= kAlphaMin);
-}
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 // alpha = min(0.99, exp(q))
 __device__ __forceinline__ float clamped(float alpha_un) { return fminf(alpha_un, kAlphaMax); }
 
-// test_T = T (1 - alpha) of a Gaussian that `reaches` the pixel: below 1e-4
+// test_T = T (1 - alpha) of a Gaussian that reaches the pixel: below 1e-4
 // the pixel ends, and the Gaussian that triggers it does not contribute.
 __device__ __forceinline__ bool ends_pixel(float test_T) { return test_T < kTermEps; }
 
 // ---------------------------------------------------------------------------
 // The schedule of the pair bodies (composite.cu composite_pairs_range,
 // composite_bwd.cu composite_pairs_range_bwd): one body each way for the
-// eight product kernels, on three kinds of row table (RowKind below). The
-// stage probes of composite_rm.cu use nothing below.
+// eight product kernels, on three kinds of row table (RowKind below), and
+// for the stage probes, whose variants are `if constexpr` hooks of the same
+// bodies (composite_probes.cuh).
 //
 // A thread owns kPairsR = 2 pixels, a column of two; a warp's 8 x 4 lanes
 // own a patch of kPatchW x kPatchH = 8 x 8 pixels, and patches are numbered
@@ -89,9 +68,9 @@ __host__ __device__ inline int pair_blocks(int th, int tw) {
 }
 
 // q below kQGate skips without an expf: expf(-5.55) = 3.887e-3 < 1/255 (ln
-// 1/255 = -5.5413), so such a Gaussian fails `reaches` anyway. Mirrored by
-// ops/rasterizer/kernels.py:Q_GATE, which tests/test_torch_pair_cull.py
-// sweeps.
+// 1/255 = -5.5413), so such a Gaussian fails the 1/255 floor anyway.
+// Mirrored by ops/rasterizer/kernels.py:Q_GATE, which
+// tests/test_torch_pair_cull.py sweeps.
 constexpr float kQGate = (float)-5.55;
 
 // The conservative pixel box of a row, mirrored operation for operation by
@@ -200,15 +179,24 @@ __device__ __forceinline__ bool misses(float4 box, float4 patch) {
   return box.y < patch.x || box.x > patch.y || box.w < patch.z || box.z > patch.w;
 }
 
-// `reaches` for a row held in registers, behind the exp gate: false without
-// an expf when q < kQGate, else exactly what `reaches` returns, from the same
-// q in the same operation order.
+// q of a conic row at the pixel (px, py), and the pixel's offset dx, dy:
+// the plain version's (kernels.py _conic_q), in its operation order. Then
+// whether the pixel composites the row, behind the exp gate: false without
+// an expf when q < kQGate (such a Gaussian fails the 1/255 floor anyway),
+// else false when q > log_op or exp(q) < 1/255; also alpha_un = exp(q), the
+// alpha before its clamp.
+__device__ __forceinline__ float conic_q(float A, float B, float C, float gx, float gy,
+                                        float log_op, float px, float py, float& dx,
+                                        float& dy) {
+  dx = px - gx;
+  dy = py - gy;
+  return log_op - 0.5f * (A * (dx * dx) + C * (dy * dy)) - B * (dx * dy);
+}
+
 __device__ __forceinline__ bool reaches_gated(float A, float B, float C, float gx, float gy,
                                               float log_op, float px, float py, float& dx,
                                               float& dy, float& alpha_un) {
-  dx = px - gx;
-  dy = py - gy;
-  const float q = log_op - 0.5f * (A * (dx * dx) + C * (dy * dy)) - B * (dx * dy);
+  const float q = conic_q(A, B, C, gx, gy, log_op, px, py, dx, dy);
   if (q < kQGate) return false;
   alpha_un = expf(q);
   return (q <= log_op) && (alpha_un >= kAlphaMin);
@@ -293,19 +281,38 @@ __device__ __forceinline__ void stage_packed_row(PackedRows& s, const float* __r
   s.box[threadIdx.x] = packed_pixel_box(lo, hi, th, tw);
 }
 
-// Thread x of the block stages row k (k < n) of a tile's global conic rows
-// quad (K, 8) = [A, B, C, gx, gy, log_op, _, _] and colors (K, 4), three
-// 16-byte loads, as PairRows with its box in global pixel coordinates.
+// Row k (k < n) of a tile's global conic rows quad (K, 8) = [A, B, C, gx,
+// gy, log_op, _, _] and colors (K, 4): three 16-byte loads into registers,
+// then thread x's store of it as PairRows with its box in global pixel
+// coordinates. stage_conic_rm_row does both; the pipe probe keeps a row in
+// registers while a batch blends.
+struct ConicRowRegs {
+  float4 lo, hi, col;
+};
+
+__device__ __forceinline__ void load_conic_rm_row(ConicRowRegs& r, const float* __restrict__ quad,
+                                                  const float* __restrict__ color, int k, int n) {
+  if (k >= n) return;
+  r.lo = reinterpret_cast<const float4*>(quad)[2 * k];
+  r.hi = reinterpret_cast<const float4*>(quad)[2 * k + 1];
+  r.col = reinterpret_cast<const float4*>(color)[k];
+}
+
+__device__ __forceinline__ void store_conic_rm_row(PairRows& s, const ConicRowRegs& r, int k,
+                                                   int n) {
+  if (k >= n) return;
+  s.lo[threadIdx.x] = r.lo;
+  s.hi[threadIdx.x] = make_float2(r.hi.x, r.hi.y);
+  s.col[threadIdx.x] = r.col;
+  s.box[threadIdx.x] = pixel_box(r.lo.x, r.lo.y, r.lo.z, r.lo.w, r.hi.x, r.hi.y);
+}
+
 __device__ __forceinline__ void stage_conic_rm_row(PairRows& s, const float* __restrict__ quad,
                                                    const float* __restrict__ color, int k,
                                                    int n) {
-  if (k >= n) return;
-  const float4 lo = reinterpret_cast<const float4*>(quad)[2 * k];
-  const float4 hi = reinterpret_cast<const float4*>(quad)[2 * k + 1];
-  s.lo[threadIdx.x] = lo;
-  s.hi[threadIdx.x] = make_float2(hi.x, hi.y);
-  s.col[threadIdx.x] = reinterpret_cast<const float4*>(color)[k];
-  s.box[threadIdx.x] = pixel_box(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y);
+  ConicRowRegs r;
+  load_conic_rm_row(r, quad, color, k, n);
+  store_conic_rm_row(s, r, k, n);
 }
 
 // Thread x stages row k (k < n) of the batch, as its row kind lays it out:

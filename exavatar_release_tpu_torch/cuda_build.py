@@ -22,11 +22,10 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 LIBRARIES: Dict[str, tuple] = {
     "composite": ("csrc/composite.cu",),
     "composite_bwd": ("csrc/composite_bwd.cu",),
-    "composite_rm": ("csrc/composite_rm.cu",),
     "windows": ("csrc/windows.cu",),
 }
 # included by the sources above; hashed into every library's name
-HEADERS = ("csrc/composite_common.cuh",)
+HEADERS = ("csrc/composite_common.cuh", "csrc/composite_probes.cuh")
 
 # -fmad=false, no fast math: the compositing thresholds (alpha >= 1/255,
 # T < 1e-4) must see the same rounding as the plain PyTorch version.

@@ -9,7 +9,7 @@ tools/kvariants.py, the window build of tools/win_probe.py).
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor goes
 to the kernel (``csrc/composite.cu``, ``csrc/composite_bwd.cu``: kernels 1-8
-on one body each way; ``csrc/composite_rm.cu``: the stage probes;
+on one body each way, and the stage probes as hooks of the same bodies;
 ``csrc/windows.cu``), or the wrapper raises. There is no fallback. Each
 wrapper counts its launches in ``<wrapper>.launches``.
 
@@ -534,8 +534,9 @@ def _lib() -> ctypes.CDLL:
     ]
     lib.composite_tiles_fwd_v2.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
     lib.composite_tiles_fwd.argtypes = _RM_FWD_ARGS
+    lib.composite_rm_fwd_variant.argtypes = [_I] + _RM_FWD_ARGS
     for fn in (lib.composite_tiles_fwd_cm, lib.composite_pairs_fwd_rg, lib.composite_tiles_fwd_v2,
-               lib.composite_tiles_fwd):
+               lib.composite_tiles_fwd, lib.composite_rm_fwd_variant):
         fn.restype = _I
     return lib
 
@@ -548,8 +549,9 @@ def _lib_bwd() -> ctypes.CDLL:
     ]
     lib.composite_tiles_bwd_v2.argtypes = [_P] * 9 + [_I, _I, _I, _I, _P]
     lib.composite_tiles_bwd.argtypes = _RM_BWD_ARGS
+    lib.composite_rm_bwd_variant.argtypes = [_I] + _RM_BWD_ARGS
     for fn in (lib.composite_tiles_bwd_cm, lib.composite_pairs_bwd_rg, lib.composite_tiles_bwd_v2,
-               lib.composite_tiles_bwd):
+               lib.composite_tiles_bwd, lib.composite_rm_bwd_variant):
         fn.restype = _I
     return lib
 
@@ -713,19 +715,9 @@ composite_pairs_bwd_rg.launches = 0
 
 
 # --------------------------------------------------------------------------
-# row-major kernels: kernel_v=2 (3, 4) and 5, 6 on the pair bodies of
-# csrc/composite.cu and csrc/composite_bwd.cu; the stage probes in
-# csrc/composite_rm.cu
+# row-major kernels: kernel_v=2 (3, 4), 5, 6 and the stage probes of 5 and 6,
+# all on the pair bodies of csrc/composite.cu and csrc/composite_bwd.cu
 # --------------------------------------------------------------------------
-
-
-def _lib_rm() -> ctypes.CDLL:
-    lib = cuda_build.load("composite_rm")
-    lib.composite_rm_fwd_variant.argtypes = [_I] + _RM_FWD_ARGS
-    lib.composite_rm_bwd_variant.argtypes = [_I] + _RM_BWD_ARGS
-    for fn in (lib.composite_rm_fwd_variant, lib.composite_rm_bwd_variant):
-        fn.restype = _I
-    return lib
 
 
 def _check_rm(name: str, x: torch.Tensor, shape: tuple, device) -> None:
@@ -761,7 +753,7 @@ def _fwd_rm(wrapper, tile_quad, tile_color, tile_counts, tile_shape, tile_origin
         if wrapper is composite_tiles_fwd_v2:
             rc = _lib().composite_tiles_fwd_v2(*head, *tail)
         elif variant is not None:
-            rc = _lib_rm().composite_rm_fwd_variant(variant, *head, origins, *tail)
+            rc = _lib().composite_rm_fwd_variant(variant, *head, origins, *tail)
         else:
             rc = _lib().composite_tiles_fwd(*head, origins, *tail)
     _raise_on(rc, wrapper.__name__)
@@ -800,7 +792,7 @@ def _bwd_rm(wrapper, tile_quad, tile_color, tile_counts, g_accum, g_tfinal, accu
         if wrapper is composite_tiles_bwd_v2:
             rc = _lib_bwd().composite_tiles_bwd_v2(*head, *tail)
         elif variant is not None:
-            rc = _lib_rm().composite_rm_bwd_variant(variant, *head, origins, *tail)
+            rc = _lib_bwd().composite_rm_bwd_variant(variant, *head, origins, *tail)
         else:
             rc = _lib_bwd().composite_tiles_bwd(*head, origins, *tail)
     _raise_on(rc, wrapper.__name__)
@@ -869,13 +861,13 @@ composite_tiles_bwd.launches = 0
 
 
 # --------------------------------------------------------------------------
-# stage probes: the one-pixel-a-thread design of composite_tiles_fwd / _bwd
-# with origins, one stage stubbed or reformulated (csrc/composite_rm.cu, two
-# kernel templates under a compile-time variant; replace
-# tools/kvariants.py:build_fwd and build_bwd). ``base`` is that design
-# itself, the instrument's own base; kernels 5 and 6 run the pair bodies.
-# The variants, their semantics and what each isolates are described at
-# "Stage probes" in composite_rm.cu.
+# stage probes: kernels 5 and 6 (composite_tiles_fwd / _bwd with origins) with
+# one stage of their pair body stubbed or reformulated, each variant a
+# compile-time instantiation of the body's `if constexpr` hooks (replace
+# tools/kvariants.py:build_fwd and build_bwd). ``base`` is kernel 5's / 6's
+# own code, launched and counted as a probe. The variants, their meaning on
+# the pair body and what each isolates are described in
+# csrc/composite_probes.cuh.
 # --------------------------------------------------------------------------
 
 FWD_VARIANTS = ("base", "noexp", "nomm", "noskip", "logsp", "pipe", "chunk")
@@ -1091,9 +1083,9 @@ def composite_tiles_bwd_variant_plain(variant, tile_quad, tile_color, tile_count
 def composite_tiles_fwd_variant(variant: str, tile_quad, tile_color, tile_counts, tile_shape,
                                 tile_origins) -> Tuple[torch.Tensor, torch.Tensor]:
     """The function of ``composite_tiles_fwd`` with origins (global conic
-    rows) in the stage probes' one-pixel-a-thread design under ``variant``
-    (one of FWD_VARIANTS); ``base`` is that design unstubbed, launched and
-    counted here like every variant. Replaces the Pallas kernel of
+    rows) by kernel 5's pair body under ``variant`` (one of FWD_VARIANTS);
+    ``base`` is kernel 5's code unstubbed, launched and counted here like
+    every variant. Replaces the Pallas kernel of
     tools/kvariants.py:build_fwd."""
     vid = _variant_id(variant, FWD_VARIANTS)
     if _on_cpu(tile_quad):
@@ -1111,10 +1103,10 @@ composite_tiles_fwd_variant.launches = 0
 def composite_tiles_bwd_variant(variant: str, tile_quad, tile_color, tile_counts, g_accum,
                                 g_tfinal, accum, tfinal, tile_shape,
                                 tile_origins) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The function of ``composite_tiles_bwd`` with origins in the stage
-    probes' design under ``variant`` (one of BWD_VARIANTS); ``base``
-    unstubbed, counted here like every variant. Replaces the Pallas kernel
-    of tools/kvariants.py:build_bwd."""
+    """The function of ``composite_tiles_bwd`` with origins by kernel 6's
+    pair body under ``variant`` (one of BWD_VARIANTS); ``base`` is kernel
+    6's code unstubbed, counted here like every variant. Replaces the Pallas
+    kernel of tools/kvariants.py:build_bwd."""
     vid = _variant_id(variant, BWD_VARIANTS)
     if _on_cpu(tile_quad):
         return composite_tiles_bwd_variant_plain(variant, tile_quad, tile_color, tile_counts,

@@ -1,12 +1,11 @@
-"""Kernel-internals attribution probe: times the one-pixel-a-thread design
-of the row-major compositing kernels with origins compiled with one stage
-stubbed or reformulated, each variant an instantiation of the probes'
-templates (counterpart of tools/kvariants.py of the JAX repository; the
-variants are described at "Stage probes" in csrc/composite_rm.cu; base is
-that design unstubbed). Kernels 5 and 6 themselves ("the product") run the
-pair bodies of csrc/composite.cu and csrc/composite_bwd.cu: they are timed
-on the same scene beside base, and give the reference of every exact
-variant.
+"""Kernel-internals attribution probe: times the pair bodies of the
+row-major compositing kernels with origins (kernels 5 and 6) compiled with
+one stage stubbed or reformulated, each variant an instantiation of the
+bodies' `if constexpr` hooks (counterpart of tools/kvariants.py of the JAX
+repository; the variants and their meaning on the pair body are described in
+csrc/composite_probes.cuh). base is kernels 5 and 6's own code, launched as a
+probe; kernels 5 and 6 themselves ("the product") are timed on the same
+scene beside it, and give the reference of every exact variant.
 
   fwd: base, noexp, nomm, noskip, logsp, pipe, chunk
   bwd: base, noexp, nomm, nograd, fusedgrad, noT, nodeloc, logsp, noT+logsp,

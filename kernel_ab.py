@@ -21,7 +21,9 @@ row-major kernels get the same windows repacked (``composite_tiles_fwd_v2`` /
 compares, kernel by kernel, the SASS (``cuobjdump -sass``, addresses and
 encodings dropped) of the default builds of two checkouts (built where
 missing) and prints one JSON line: the kernels whose instructions are the
-same, those that differ, and those that only one build has.
+same, those that differ, and those that only one build has; and, in each
+build that has the stage probes' kernels, whether the ``base`` variant's
+instructions are those of the kernel it probes (``base_is_product``).
 """
 import json
 import os
@@ -56,13 +58,20 @@ def compare_sass(root_a: str, root_b: str) -> dict:
             "print(json.dumps(b.build()))")
     libs = [json.loads(subprocess.run([sys.executable, "-c", code, r], capture_output=True,
                                       text=True, check=True).stdout) for r in (root_a, root_b)]
-    res = {"same": [], "differ": [], "only_one": []}
-    for name in libs[0]:
+    res = {"same": [], "differ": [], "only_one": [], "base_is_product": {}}
+    for name in sorted(set(libs[0]) | set(libs[1])):
         a, b = (_sass(lib[name]) if name in lib else {} for lib in libs)
         for fn in sorted(set(a) | set(b)):
             key = "only_one" if (fn in a) != (fn in b) else ("same" if a[fn] == b[fn]
                                                                else "differ")
             res[key].append(f"{name}:{fn}")
+        for side, sass in (("a", a), ("b", b)):
+            for d in ("fwd", "bwd"):
+                probe = f"composite_tiles_{d}_variant_kernelILi0E"
+                base = [v for k, v in sass.items() if probe in k]
+                prod = [v for k, v in sass.items() if f"composite_tiles_{d}_kernelE" in k]
+                if base and prod:
+                    res["base_is_product"][f"{side}:{d}"] = base[0] == prod[0]
     return res
 
 

@@ -598,8 +598,8 @@ def test_failed_build_raises(dev, tmp_path, monkeypatch):
 
 
 # --------------------------------------------------------------------------
-# the probe kernels: stage variants of the one-pixel-a-thread design of
-# kernels 5 and 6 (csrc/composite_rm.cu), the window build
+# the probe kernels: the stage probes, kernels 5 and 6's pair bodies under
+# each variant's hooks (csrc/composite_probes.cuh), and the window build
 # --------------------------------------------------------------------------
 
 
@@ -647,7 +647,7 @@ def test_fwd_variant_equals_plain(probe_rows, variant):
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
     if variant == "base":
-        # the one-pixel-a-thread design and kernel 5's pair body, bit for bit
+        # kernel 5's pair body launched as a probe, bit for bit
         assert all(torch.equal(g, w) for g, w in zip(got, r["fwd"]))
         # the probes' entry point at variant 0 launches the same kernel
         direct = kn._fwd_rm(kn.composite_tiles_fwd_variant, *args, kn.VARIANT_IDS["base"])
@@ -675,8 +675,8 @@ def test_bwd_variant_equals_plain(probe_rows, variant):
     if variant == "base" or variant in kn.EXACT_VARIANTS:
         b6 = kn.composite_tiles_bwd(r["quad"], r["color"], r["counts"], *r["cot"], *r["fwd"],
                                     TILE, r["origins"])
-        # base against kernel 6's pair body: the same terms summed in another
-        # order (one pixel a thread against two, then the warp; atomics)
+        # base against kernel 6: the same code, whose atomics sum in an order
+        # that changes from run to run
         assert _rows_err(got, b6) <= (1e-6 if variant == "base" else 1e-4)
 
 
@@ -687,6 +687,66 @@ def test_variant_checks(probe_rows):
                                        r["origins"])
     with pytest.raises(ValueError):
         kn.composite_tiles_fwd_variant("base", r["quad"], r["color"], r["counts"], TILE, None)
+
+
+@pytest.mark.parametrize("case", ["small", "edges", "counts", "truncated", "off_grid",
+                                  "tile_20x36", "chunk_edge"])
+def test_variants_where_the_cull_bites(dev, case):
+    """Every stage probe on kernels 5 and 6's cull cases
+    (``test_rm_kernels_equal_plain_where_the_cull_bites``) and on windows
+    where the cull meets the chunk forms' bookkeeping
+    (``torch_windows.chunk_edge_windows``: counts past one 256-row batch,
+    each chunk's last row culled by all patches but one, opaque rows that
+    end pixels inside the first chunk): each forward within 1e-5 of each
+    output's max of its plain version and base bit-equal to kernel 5; each
+    backward within 1e-4 of each row's max of its plain version, lanes 6-7
+    zero, nograd all zero, and base within 1e-6 of kernel 6's rows."""
+    from torch_windows import chunk_edge_windows
+
+    rng = np.random.default_rng(29)
+    tile = (20, 36) if case == "tile_20x36" else TILE
+    if case == "chunk_edge":
+        win, counts, origins = chunk_edge_windows(rng, T=4, tile_shape=tile)
+    else:
+        win, counts, origins = _pair_windows(rng, case if case in ("small", "edges", "counts")
+                                             else "small", tile=tile)
+        K = win.shape[2]
+        if case == "truncated":
+            counts[:] = [K + 1, 3 * K, K, 0, 300, K + 7]
+        elif case == "off_grid":
+            shift = np.asarray([0.5, 1045.25], np.float32)
+            origins += shift
+            win[:, 3:5] += shift[None, :, None]
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    win, counts, origins = to(win), to(counts), to(origins)
+    rows_g, _, color = chip_smoke.rm_rows_from_windows(win, origins)
+    args = (rows_g, color, counts, tile, origins)
+    f5 = kn.composite_tiles_fwd(*args)
+    T, P = f5[0].shape[:2]
+    g = torch.Generator().manual_seed(30)
+    cot = (torch.randn(T, P, 4, generator=g).to(dev), torch.randn(T, P, 1, generator=g).to(dev))
+    bargs = (rows_g, color, counts, *cot, *f5, tile, origins)
+    b6 = kn.composite_tiles_bwd(*bargs)
+    bad = []
+    for v in kn.FWD_VARIANTS:
+        got = kn.composite_tiles_fwd_variant(v, *args)
+        want = kn.composite_tiles_fwd_variant_plain(v, *args)
+        err = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(got, want))
+        if err > 1e-5 or (v == "base" and not all(map(torch.equal, got, f5))):
+            bad.append((f"fwd/{v}", err))
+    for v in kn.BWD_VARIANTS:
+        got = kn.composite_tiles_bwd_variant(v, *bargs)
+        if v == "nograd":
+            err = float(max(got[0].abs().max(), got[1].abs().max()))
+            ok = err == 0.0
+        else:
+            err = _rows_err(got, kn.composite_tiles_bwd_variant_plain(v, *bargs))
+            ok = err <= 1e-4 and not got[0][..., 6:].any()
+            if v == "base":
+                ok &= _rows_err(got, b6) <= 1e-6
+        if not ok:
+            bad.append((f"bwd/{v}", err))
+    assert not bad, bad
 
 
 def test_tile_windows_equals_gather(dev):

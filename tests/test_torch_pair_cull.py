@@ -237,7 +237,32 @@ def scene():
                 win=dwin, width=width, origins=dorig, idx=idx, visits=visits, tile=TILE)
 
 
-def _scan(n, tile, q_of, color_of, miss_all, back=None):
+def _warp_sums(t, variant):
+    """(T, npatch, 10) sums over each warp's 32 lanes of their values t (T,
+    npatch, 32, 10), in the order the kernel takes: __shfl_down_sync's tree,
+    or under fusedgrad reduce_butterfly's butterfly (lane l ends with slot l
+    >> 1), or under noT / noT+logsp reduce_transpose's sum in lane order."""
+    if variant == "fusedgrad":
+        lanes = torch.arange(32)
+        u = torch.cat([t, torch.zeros(t.shape[:-1] + (6,))], dim=-1)
+        for half in (8, 4, 2, 1):
+            up = ((lanes & (2 * half)) != 0)[:, None]
+            other = u[:, :, lanes ^ (2 * half)]
+            u = (torch.where(up, u[..., half:2 * half], u[..., :half])
+                 + torch.where(up, other[..., half:2 * half], other[..., :half]))
+        u = u[..., 0] + u[:, :, lanes ^ 1, 0]
+        return u[:, :, 0:20:2]
+    if variant in ("noT", "noT+logsp"):
+        s = torch.zeros(t.shape[:2] + t.shape[3:])
+        for x in range(32):
+            s = s + t[:, :, x]
+        return s
+    for off in (16, 8, 4, 2, 1):
+        t = torch.cat([t[:, :, :off] + t[:, :, off:2 * off], t[:, :, off:]], dim=2)
+    return t[:, :, 0]
+
+
+def _scan(n, tile, q_of, color_of, miss_all, back=None, variant="base"):
     """The kernels' schedule over each tile's rows k < n: per row, the warp
     patches whose cull ``miss_all`` (T, npatch, K) marks skip it, and q <
     Q_GATE skips before the exp; the blend and replay are ``_scan_forward``'s
@@ -245,17 +270,30 @@ def _scan(n, tile, q_of, color_of, miss_all, back=None):
     tile's pixels, ``color_of(k)`` the (T, 4) colors. With ``back`` = (g_acc,
     A_p, grad_of), ``grad_of(dq, extra)`` the six (T, P) coefficient values
     of each pixel, the replay's ten values are summed as the kernel sums
-    them: a thread's two pixels in turn, then the warp's lanes by
-    __shfl_down_sync's tree, then the patches. Returns (acc (4, T, P), Tr)
-    or red (T, K, 10), then the number of visits culled and the number
-    spared an exp by the gate."""
+    them: a thread's two pixels in turn, then the warp's lanes
+    (``_warp_sums``), then the patches. ``variant``, a stage probe's
+    (csrc/composite_probes.cuh), changes the schedule as its hooks do:
+    noskip drops the cull and the gate; logsp carries log T; the chunk forms
+    (noexp, nomm, chunk) hold T0 and done over each 256-row chunk, and at its
+    end take done from the dead of the chunk's last row, or, where the pixel
+    skipped that row, from E(cum) T0. Returns (acc (4, T, P), Tr; logsp:
+    exp(log T)) or red (T, K, 10), then the number of visits culled and the
+    number spared an exp by the gate."""
     Tn = n.shape[0]
     R = chip_smoke.PAIRS_R
     lay = chip_smoke.pair_layout(tile)
     P = tile[0] * tile[1]
+    logsp = variant in ("logsp", "noT+logsp")
+    chunked = variant in ("noexp", "nomm", "chunk")
+    E, L = kn._probe_fns(variant)
     acc = torch.zeros(4, Tn, P)
-    Tr = torch.ones(Tn, P)
+    Tr = torch.full((Tn, P), 0.0 if logsp else 1.0)
     done = torch.zeros(Tn, P, dtype=torch.bool)
+    # the chunk forms: the chunk's sums of wlog (all, and of the rows not
+    # dead), its prefix carry, the dead of the last row each pixel evaluated
+    # and whether that row ends the chunk
+    cum, kept, carry = torch.zeros(Tn, P), torch.zeros(Tn, P), torch.zeros(Tn, P)
+    dead, last = torch.zeros_like(done), torch.zeros_like(done)
     culled = gated = 0
     if back is not None:
         g_acc, A_p, grad_of = back
@@ -266,26 +304,58 @@ def _scan(n, tile, q_of, color_of, miss_all, back=None):
     for k in range(int(n.max())):
         live = (k < n)[:, None]
         active = live & ~done
-        miss = miss_all[:, :, k][:, lay.patch]
         q, log_op, extra = q_of(k)
-        gate = q < kn.Q_GATE
+        if variant == "noskip":
+            miss = gate = torch.zeros_like(done)
+        else:
+            miss = miss_all[:, :, k][:, lay.patch]
+            gate = q < kn.Q_GATE
         culled += int((active & miss).sum())
         gated += int((active & ~miss & gate).sum())
-        alpha_un = torch.where(miss | gate, 0.0, torch.exp(q))
+        alpha_un = torch.where(miss | gate, 0.0, E(q))
         valid = ~miss & ~gate & (q <= log_op) & (alpha_un >= kn.ALPHA_MIN) & live
         alpha = torch.where(valid, torch.clamp(alpha_un, max=kn.ALPHA_MAX), 0.0)
-        done = done | (Tr * (1.0 - alpha) < kn.TERM_EPS)
-        hit = valid & ~done
-        alpha = torch.where(done, 0.0, alpha)
-        w = alpha * Tr
         col = color_of(k)
+        if chunked:
+            ends_chunk = kn._chunk_end(k, n).expand_as(done)
+            ev = valid & ~done
+            wlog = L(-alpha)
+            T_c = E(wlog if variant == "nomm" else cum) * Tr
+            dead_k = T_c * (1.0 - alpha) < kn.TERM_EPS
+            dead = torch.where(ev, dead_k, dead)
+            last = torch.where(ev, ends_chunk, last)
+            cum = torch.where(ev, cum + wlog, cum)
+            hit = ev & ~dead_k
+            w = torch.where(hit, alpha * T_c, 0.0)
+            kept = torch.where(hit, kept + wlog, kept)
+        elif logsp:
+            wl = torch.log1p(-alpha)
+            done = done | (valid & (Tr + wl < kn.LN_TERM_EPS))
+            hit = valid & ~done
+            T_c = torch.exp(Tr)
+            w = torch.where(hit, torch.exp(torch.clamp(q, max=kn.LN_ALPHA_MAX) + Tr)
+                            if back is None else alpha * T_c, 0.0)
+        else:
+            done = done | (Tr * (1.0 - alpha) < kn.TERM_EPS)
+            hit = valid & ~done
+            alpha = torch.where(done, 0.0, alpha)
+            T_c = Tr
+            w = alpha * Tr
         if back is None:
             acc = acc + w[None] * col.T[:, :, None]
         else:
             cg = (g_acc[0] * col[:, 0:1] + g_acc[1] * col[:, 1:2] + g_acc[2] * col[:, 2:3]
                   + g_acc[3] * col[:, 3:4])
-            Pr = Pr + w * cg
-            dalpha = Tr * cg - (A_p - Pr) / (1.0 - alpha)
+            if variant == "nomm":
+                P_incl = Pr + w * cg
+                carry = torch.where(hit & ends_chunk, w * cg, carry)
+            elif chunked:
+                carry = torch.where(hit, carry + w * cg, carry)
+                P_incl = Pr + carry
+            else:
+                Pr = Pr + w * cg
+                P_incl = Pr
+            dalpha = T_c * cg - (A_p - P_incl) / (1.0 - alpha)
             dq = torch.where(hit, dalpha * alpha_un, 0.0)
             vals = torch.stack(grad_of(dq, extra) + [w * g for g in g_acc], dim=2)  # (T, P, 10)
             v = torch.zeros(Tn, npatch * 32 * R, 10).index_copy_(1, flat, vals)
@@ -293,13 +363,25 @@ def _scan(n, tile, q_of, color_of, miss_all, back=None):
             t = v[:, :, :, 0]
             for r in range(1, R):
                 t = t + v[:, :, :, r]
-            for off in (16, 8, 4, 2, 1):
-                t = torch.cat([t[:, :, :off] + t[:, :, off:2 * off], t[:, :, off:]], dim=2)
-            red[:, k] = t[:, :, 0].sum(1)
-        Tr = Tr * (1.0 - alpha)
+            red[:, k] = _warp_sums(t, variant).sum(1)
+        if chunked:
+            end = live & kn._chunk_end(k, n)
+            upd = end & ~done
+            # a last row the pixel skipped has alpha = 0
+            skipped = (Tr if variant == "nomm" else E(cum) * Tr) < kn.TERM_EPS
+            Tr = torch.where(upd, Tr * E(kept), Tr)
+            if back is not None:
+                Pr = torch.where(upd, Pr + carry, Pr)
+            done = torch.where(upd, torch.where(last, dead, skipped), done)
+            cum, kept, carry = (torch.where(end, 0.0, x) for x in (cum, kept, carry))
+            dead, last = dead & ~end, last & ~end
+        elif logsp:
+            Tr = torch.where(hit, Tr + wl, Tr)
+        else:
+            Tr = Tr * (1.0 - alpha)
     if back is not None:
         return red, culled, gated
-    return (acc, Tr), culled, gated
+    return (acc, torch.exp(Tr) if logsp else Tr), culled, gated
 
 
 def _conic_grad(dq, extra):
@@ -340,14 +422,16 @@ def _schedule(s, g_full=None):
     return dwin, culled, gated
 
 
-def _schedule_rm(quad, color, counts, tile, origins=None, cot=None):
+def _schedule_rm(quad, color, counts, tile, origins=None, cot=None, variant="base"):
     """``_scan`` on a tile's row-major rows (T, K, 8), read up to min(count,
     K): packed rows with the box and the patches in tile-local coordinates,
     as kernels 3 and 4 run them, or with ``origins`` (T, 2) global conic
     rows with the box in global coordinates and the patches at the tiles'
-    origins, as kernels 5 and 6 run them. cot = (g_accum, g_tfinal, accum,
-    tfinal) for the backward. Returns ((accum, tfinal) or (dquad, dcolor),
-    visits culled, visits spared an exp by the gate)."""
+    origins, as kernels 5 and 6 run them, and under ``variant`` as their
+    stage probes do (nodeloc: the gradient's six values in the packed basis
+    at the tile-local pixel). cot = (g_accum, g_tfinal, accum, tfinal) for
+    the backward. Returns ((accum, tfinal) or (dquad, dcolor), visits
+    culled, visits spared an exp by the gate)."""
     Tn, Kq, _ = quad.shape
     n = torch.clamp(counts.long(), max=Kq)
     lx, ly = kn._tile_pixels(Tn, tile, quad.device, origins)
@@ -362,15 +446,19 @@ def _schedule_rm(quad, color, counts, tile, origins=None, cot=None):
         q_of = lambda k: kn._conic_q(quad[:, k], lx, ly)
     color_of = lambda k: color[:, k]
     if cot is None:
-        (acc, Tr), culled, gated = _scan(n, tile, q_of, color_of, miss_all)
+        (acc, Tr), culled, gated = _scan(n, tile, q_of, color_of, miss_all, variant=variant)
         return (acc.permute(1, 2, 0).contiguous(), Tr[:, :, None]), culled, gated
     g_accum, g_tfinal, accum, tfinal = cot
     g_acc = [g_accum[:, :, c] for c in range(4)]
     A_p = (g_acc[0] * accum[:, :, 0] + g_acc[1] * accum[:, :, 1] + g_acc[2] * accum[:, :, 2]
            + g_acc[3] * accum[:, :, 3] + g_tfinal[:, :, 0] * tfinal[:, :, 0])
-    basis = (lx, ly, lx * lx, lx * ly, ly * ly)
-    grad_of = _conic_grad if origins is not None else (lambda dq, _: [dq] + [dq * b for b in basis])
-    red, culled, gated = _scan(n, tile, q_of, color_of, miss_all, (g_acc, A_p, grad_of))
+    if origins is None or variant == "nodeloc":
+        bx, by = kn._tile_pixels(Tn, tile, quad.device)
+        basis = (bx, by, bx * bx, bx * by, by * by)
+        grad_of = lambda dq, _: [dq] + [dq * b for b in basis]
+    else:
+        grad_of = _conic_grad
+    red, culled, gated = _scan(n, tile, q_of, color_of, miss_all, (g_acc, A_p, grad_of), variant)
     dquad = torch.zeros(Tn, Kq, 8)
     dquad[..., 0:6] = red[..., 0:6]
     return (dquad, red[..., 6:10].contiguous()), culled, gated
@@ -767,3 +855,59 @@ def test_conic_rm_schedule_vs_pallas_interpret():
             err = float(np.abs(g[..., lane] - w[..., lane])[live].max())
             assert err <= 5e-4 * float(np.abs(w[..., lane][live]).max()), (name, lane, err)
         assert not g[..., lanes:].any(), name
+
+
+# --------------------------------------------------------------------------
+# (f) the stage probes (kernels 9 and 10): kernels 5 and 6's schedule under
+# each variant's hooks
+# --------------------------------------------------------------------------
+
+VARIANT_CASES = ([f"fwd/{v}" for v in kn.FWD_VARIANTS]
+                 + [f"bwd/{v}" for v in kn.BWD_VARIANTS if v != "nograd"])
+
+
+@pytest.mark.parametrize("case", VARIANT_CASES)
+def test_variant_schedule_is_the_plain_version(case):
+    """The stage probes' schedule (``_schedule_rm`` with origins under a
+    variant: the cull and the gate wherever the variant keeps them, its
+    hooks' blend or replay, its warp sums) on windows where the cull meets
+    the chunk forms' bookkeeping (``torch_windows.chunk_edge_windows``:
+    counts past one 256-row batch, each chunk's last row at the tile's
+    corner, culled by all patches but one, opaque rows that end pixels
+    inside the first chunk), on tiles of 32 x 128 and 20 x 36: the forward
+    bit-equal to ``composite_tiles_fwd_variant_plain``, the backward within
+    1e-6 of each row's largest value of ``composite_tiles_bwd_variant_plain``
+    (the warps sum in another order than the plain version)."""
+    from torch_windows import chunk_edge_windows
+
+    d, variant = case.split("/")
+    for tile, T, seed in (((32, 128), 2, 41), ((20, 36), 4, 42)):
+        win, counts, origins = map(torch.from_numpy, chunk_edge_windows(
+            np.random.default_rng(seed), T=T, tile_shape=tile))
+        rows_g, _, color = chip_smoke.rm_rows_from_windows(win, origins)
+        f = kn.composite_rm_plain_with_visits(rows_g, color, counts, tile, origins)
+        # the inputs bite: pixels end inside the first chunk, and the box of
+        # each first chunk's last row misses most patches
+        assert float((f[2] < 256).float().mean()) > 0.1, tile
+        box = kn.row_pixel_box(rows_g[:, 255:256].permute(2, 0, 1))
+        miss = chip_smoke.patch_misses(box, chip_smoke.pair_layout(tile).bounds, origins)
+        assert float(miss.float().mean()) > 0.8, tile
+        if d == "fwd":
+            (acc, tf), culled, gated = _schedule_rm(rows_g, color, counts, tile, origins,
+                                                    variant=variant)
+            want = kn.composite_tiles_fwd_variant_plain(variant, rows_g, color, counts, tile,
+                                                        origins)
+            assert torch.equal(acc, want[0]) and torch.equal(tf, want[1]), tile
+            assert (culled > 0 and gated > 0) == (variant != "noskip")
+            continue
+        g = torch.Generator().manual_seed(seed)
+        P = tile[0] * tile[1]
+        cot = (torch.randn(T, P, 4, generator=g), torch.randn(T, P, 1, generator=g), *f[:2])
+        (dq, dc), culled, gated = _schedule_rm(rows_g, color, counts, tile, origins, cot, variant)
+        assert culled > 0 and gated > 0
+        wq, wc = kn.composite_tiles_bwd_variant_plain(variant, rows_g, color, counts, *cot, tile,
+                                                      origins)
+        err, ref = kn.bwd_row_errors(torch.cat([dq, dc], 2), torch.cat([wq, wc], 2), 2)
+        used = [0, 1, 2, 3, 4, 5, 8, 9, 10, 11]
+        assert bool((ref[used] > 0).all()), tile
+        assert float((err[used] / ref[used]).max()) <= 1e-6, tile
