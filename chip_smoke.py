@@ -48,14 +48,32 @@ the JAX package) and fails with a non-zero exit when any phase fails:
    checkpoint written and read back on the card; and the same step through
    ``kernel_v=2``, whose row-major kernels (and the two of the row-major
    boundary with origins) are held against their plain versions on that
-   step's windows.
+   step's windows;
+7. runs the probe tools (``phase_probes``): the stage probes against their
+   plain versions and timed, and the window kernel (kernel 11) integer for
+   integer against the binning's gather at the tool's inputs, on the probe
+   scene's binning and on its edge cases, timed per launch on the device
+   (``kernel_ab.windows_times``: a replayed CUDA graph, outputs cycled past
+   the L2 and into one L2-resident output) beside the wrapper's host time and
+   an empty kernel's launch floor, here and (``phase_animate``) at the
+   animate frame's dense binning, where it is also timed inside the dense
+   frames (``kernel_ab.windows_in_frame``);
+8. runs the learning check (``phase_convergence``): the convergence demo
+   through the kernels at the JAX package's two bars, +5 dB in 300 steps at
+   48x64 and +8 dB in 1000 steps at 512x896;
+9. runs the CLIs (``phase_apps``): train, test, evaluate and animate on a
+   subject directory, the train CLI with ``--profile_dir`` past iteration 40
+   (its trace must name the compositing kernels), and the four CLIs with
+   ``--human_model_path`` on a directory in the released files' layout
+   written from the synthetic arrays.
 
 Weights are random, drawn from seeded ``torch.Generator``s and then brought
 into a trained avatar's range (Gaussian scales of ~6 mm, offsets of ~mm),
 so tile occupancy and pair counts are those of a real avatar. TF32 is off
-for matmuls and cuDNN. The last two lines are the ``kernels`` JSON and the
-contract line ``{"ok": true, "device": {...}}``; the card's name and power
-limit come on the line before them.
+for matmuls and cuDNN. The whole run's time and each phase's are printed.
+The last two lines are the ``kernels`` JSON and the contract line
+``{"ok": true, "device": {...}}``; the card's name and power limit come on
+the line before them.
 """
 from __future__ import annotations
 
@@ -68,6 +86,7 @@ import time
 from typing import NamedTuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 outside the tensor cores and
 # HBM bandwidth, at the full 700 W power limit
@@ -833,9 +852,25 @@ def phase_animate(device, img=(1080, 1920), focal=1200.0, dense_k=16384, timing_
         check("composite_pairs_fwd_rg vs plain (frame 0)", torch.equal(out2, ref2),
               f"{err2}, bit for bit")
         # the window kernel (kernel 11) on this frame's sorted pairs
-        ok_w, detail = windows_on_binning(ind.screen, (H, W), ind.tile_shape, dense_k, b,
-                                          dense.pairs_per_gaussian * a.mean_3d.shape[0])
+        ok_w, detail, w_in = windows_on_binning(ind.screen, (H, W), ind.tile_shape, dense_k, b,
+                                                dense.pairs_per_gaussian * a.mean_3d.shape[0])
         check("tile_windows on frame 0's binning", ok_w, detail)
+        if device == "cuda":  # kernel 11 at the binning shape: device, host, launch floor
+            import kernel_ab
+
+            res["windows"] = wt = kernel_ab.windows_times(kn, *w_in)
+            log_windows("animate", "frame 0's dense binning", w_in, wt)
+            # the regime the frame's windows see: every pose's dense frame, twice
+            inf = kernel_ab.windows_in_frame(lambda: [render_motion(
+                human, buffers, prior, id_info, poses, cams, cfg, dense, (H, W))
+                for _ in range(2)])
+            wt["in_frame_ms"] = [1e-3 * u for u in inf]
+            check("tile_windows timed inside the dense frames", len(inf) == 2 * len(poses),
+                  f"{len(inf)} launches")
+            log(f"[animate] tile_windows inside the dense frames (binning._windows replaced by "
+                f"the kernel for this measurement): {', '.join(f'{u:.4f}' for u in inf)} us per "
+                f"launch, against {1e3 * wt['device_ms']:.4f} us with outputs cycled past the L2 "
+                f"and {1e3 * wt['hot_ms']:.4f} us L2-resident")
 
         live_rows = int(torch.clamp(b.tile_counts.long(), max=ind.rows.shape[2]).sum())
         T, P = out1.shape[0], out1.shape[2]
@@ -1644,10 +1679,46 @@ def probe_resources() -> dict:
     return out
 
 
+def log_windows(tag: str, what: str, inputs, t: dict) -> None:
+    starts, _, K, _ = inputs
+    log(f"[{tag}] tile_windows on {what}, T = {starts.shape[0] - 1}, K = {K}, {t['live']} live "
+        f"entries: device {1e3 * t['device_ms']:.4f} us per launch (outputs cycled past the L2; "
+        f"{1e3 * t['hot_ms']:.4f} us L2-resident), launch floor {1e3 * t['floor_ms']:.4f} us, "
+        f"wrapper host {1e3 * t['host_ms']:.4f} us per call, bound {1e3 * t['bound_ms']:.4f} us "
+        f"(bytes): {t['bound_ms'] / t['device_ms']:.3f} of the bound; the plain gather "
+        f"{1e3 * t['gather_ms']:.4f} us per call on the device")
+
+
+def window_edge_cases(device):
+    """[(name, starts (T + 1,) i32, rank (starts[T],) i32, K, n)]: the window
+    kernel's edge cases, seeded. K = 1, 7 and 1,023 (a 16-byte vector
+    crosses rows, T K % 4 != 0), 4 and 1,024; tiles whose count is 0 (first,
+    last and inside) and above K; rank exactly ``starts[T]`` long (nothing
+    may be read past it) and a last tile that ends there."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(21)
+    cases = []
+    for T, K in ((37, 1), (37, 7), (61, 1023), (45, 4), (33, 1024), (1, 7), (3, 1)):
+        counts = rng.integers(0, 2 * K + 3, T)
+        counts[0] = 0  # empty first tile
+        counts[-1] = 0 if T > 2 else K + 1  # empty last tile, or one past K
+        if T > 4:
+            counts[T // 2] = 0
+            counts[T // 3] = 3 * K + 1
+        starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        n = 1000 + K
+        rank = rng.integers(0, n, int(starts[-1])).astype(np.int32)
+        cases.append((f"T={T} K={K}", torch.from_numpy(starts).to(device),
+                      torch.from_numpy(rank).to(device), K, n))
+    return cases
+
+
 def windows_on_binning(screen, img, tile_shape, K, binning, max_pairs):
     """The window kernel on a real binning's sorted pairs against the
     binning's own windows (``binning._windows``), integer for integer:
-    (equal, detail)."""
+    (equal, detail, the kernel's inputs (starts, rank, K, n))."""
     import torch
 
     from exavatar_release_tpu_torch.ops.rasterizer import binning as bnm
@@ -1657,10 +1728,11 @@ def windows_on_binning(screen, img, tile_shape, K, binning, max_pairs):
     _, _, rank_sorted, starts, _, _, _, _ = bnm._compact_sorted_pairs(
         screen.mean2d, screen.radius, screen.depth, screen.in_frustum, img, *tile_shape,
         max_pairs, screen.extent)
-    got = kn.tile_windows(starts.int(), rank_sorted.int(), K, n)
+    starts, rank = starts.int(), rank_sorted.int()
+    got = kn.tile_windows(starts, rank, K, n)
     same = torch.equal(got, binning.tile_indices)
     return same, (f"(T, K) = {tuple(got.shape)} from {int(starts[-1])} sorted pairs equals the "
-                  f"binning's windows: {same}")
+                  f"binning's windows: {same}"), (starts, rank, K, n)
 
 
 def phase_probes(device, n=100_000, check_tiles=16, iters=10, win_inputs=None) -> dict:
@@ -1778,9 +1850,16 @@ def phase_probes(device, n=100_000, check_tiles=16, iters=10, win_inputs=None) -
     check("win_probe parity at its defaults", win["parity"], "integer for integer")
 
     # ---- the window kernel on the scene's own binning
-    ok, detail = windows_on_binning(s["screen"], kv.IMG, s["tile_shape"], K, bn,
-                                    bnm.default_max_pairs(n, s["tile_shape"][0]))
+    ok, detail, _ = windows_on_binning(s["screen"], kv.IMG, s["tile_shape"], K, bn,
+                                       bnm.default_max_pairs(n, s["tile_shape"][0]))
     check("tile_windows on the scene's binning", ok, detail)
+    # ---- and on its edge cases
+    for name, st, rk, eK, en in window_edge_cases(device):
+        got = kn.tile_windows(st, rk, eK, en)
+        same = torch.equal(got, kn.tile_windows_plain(st, rk, eK, en))
+        check(f"tile_windows edge case {name}", same,
+              f"(T, K) = {tuple(got.shape)}, {int(st[-1])} entries, rank exactly that long, "
+              f"integer for integer")
 
     # ---- each variant's work (its plain version's visit count, for the
     # attribution: a stub can change how early pixels end), the bounds from
@@ -1839,6 +1918,16 @@ def phase_probes(device, n=100_000, check_tiles=16, iters=10, win_inputs=None) -
         "ms": win["ms"]["kernel"], "plain_ms": win["ms"]["gather"],
         "library_ms": win["ms"]["gather"], "bound_ms": 1e3 * w_bytes, "bound_by": "bytes",
         "max_abs_err": 0.0 if win["parity"] else math.inf}
+    if on_card:  # kernel 11 at the probe shape: device, host, launch floor
+        import kernel_ab
+
+        wt = kernel_ab.windows_times(kn, starts, rank_pad, wK, wn)
+        log_windows("probes", "win_probe's seeded inputs", (starts, rank_pad, wK, wn), wt)
+        res["kernel_stats"]["tile_windows"].update(
+            ms=wt["device_ms"], wrapper_loop_ms=win["ms"]["kernel"],
+            ms_of="device ms per launch, CUDA graph of 200 launches into outputs cycled past "
+            "the L2 (kernel_ab.windows_times)",
+            **{k: wt[k] for k in ("hot_ms", "host_ms", "floor_ms", "gather_ms")})
     log(f"[probes] bytes bounds: forward {1e3 * f_bytes:.6f} ms, backward {1e3 * b_bytes:.6f} "
         f"ms; windows {1e3 * w_bytes:.6f} ms ({live_w} live entries of {wT} x {wK})")
     res["product_ms"] = probe["product"]
@@ -1870,18 +1959,69 @@ def phase_probes(device, n=100_000, check_tiles=16, iters=10, win_inputs=None) -
 
 
 # --------------------------------------------------------------------------
+# the learning check: tools/convergence_demo.py at the JAX package's bars
+# --------------------------------------------------------------------------
+
+# (name, convergence_demo.run's options, the bar in dB): the two runs of the
+# JAX package's tests/test_convergence.py, their steps, sizes and seeds
+CONVERGENCE_RUNS = (
+    ("48x64", dict(steps=300), 5.0),
+    ("512x896", dict(steps=1000, H=512, W=896, rings=16, segs=24, freeze_pose=True), 8.0),
+)
+
+
+def phase_convergence(device, runs=CONVERGENCE_RUNS) -> dict:
+    """The convergence demo as a user runs it, through the kernels (backend
+    "cuda"), each run against its bar: PSNR before and after, ms per step
+    past the warm-up, dropped and truncated pairs, and the launches (counters
+    at 0 just before the first run and read just after the last)."""
+    import torch
+
+    from exavatar_release_tpu_torch.tools import convergence_demo as cd
+
+    res = {"ok": True, "runs": {}}
+
+    def check(name, cond, detail):
+        res["ok"] &= bool(cond)
+        log(f"[convergence] {name}: {detail} {'ok' if cond else 'FAIL'}")
+
+    reset_launches()
+    for name, kw, bar in runs:
+        t0 = time.perf_counter()
+        r = cd.run(device=device, log=lambda m, n=name: log(f"[convergence {n}] {m}"), **kw)
+        gain = r.psnr_after - r.psnr_before
+        res["runs"][name] = {**r._asdict(), "settings": str(r.settings), "gain_db": gain,
+                             "bar_db": bar, "run_s": time.perf_counter() - t0}
+        check(f"{name} ({kw})", r.steps == kw["steps"] and gain > bar,
+              f"PSNR {r.psnr_before:.4f} -> {r.psnr_after:.4f} dB ({gain:+.4f}, bar +{bar}) in "
+              f"{r.steps} steps, {r.ms_per_itr} ms per step past warm-up, dropped pairs "
+              f"{r.dropped_pairs:.0f}, truncated {r.truncated:.0f}, "
+              f"{res['runs'][name]['run_s']:.1f} s, settings at the end {r.settings}")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    res["launches"] = read_launches()
+    log(f"[convergence] launches: {res['launches']}")
+    check("through the kernels", device != "cuda" or all(
+        res["launches"][k] > 0 for k in ("composite_tiles_fwd_cm", "composite_tiles_bwd_cm")),
+        "dense forward and backward launched")
+    return res
+
+
+# --------------------------------------------------------------------------
 # phase 8: the avatar CLIs on a subject directory
 # --------------------------------------------------------------------------
 
 
 def write_subject(root: str, img=(1080, 1920), n_frames: int = 3, n_points: int = 5000,
-                  focal: float = 1200.0, seed: int = 0) -> None:
+                  focal: float = 1200.0, seed: int = 0, num_expr: int = 8) -> None:
     """A seeded subject directory in the reference layout, everything
     ``data.subject.load_subject`` reads, written without cv2: COLMAP text
     (one PINHOLE camera, near-identity extrinsics per frame, a point cloud
     behind the subject), RGB frames and masks as PNG (utils/png.py),
     whole-body keypoints inside the mask, SMPL-X parameters with the subject
-    2.5 m in front of the camera, identity tables and the train split."""
+    2.5 m in front of the camera (``num_expr`` expression coefficients: 8 for
+    the synthetic body, 50 for the released model's layout), identity tables
+    and the train split."""
     import json
 
     import numpy as np
@@ -1925,7 +2065,7 @@ def write_subject(root: str, img=(1080, 1920), n_frames: int = 3, n_points: int 
             "jaw_pose": rng.normal(0, 0.05, 3).tolist(), "leye_pose": [0, 0, 0],
             "reye_pose": [0, 0, 0], "lhand_pose": rng.normal(0, 0.1, (15, 3)).tolist(),
             "rhand_pose": rng.normal(0, 0.1, (15, 3)).tolist(),
-            "expr": rng.normal(0, 0.3, 8).tolist(), "trans": [0.0, 0.1, 2.5],
+            "expr": rng.normal(0, 0.3, num_expr).tolist(), "trans": [0.0, 0.1, 2.5],
         }
         with open(os.path.join(root, "smplx_optimized", "smplx_params", f"{i}.json"), "w") as f:
             json.dump(params, f)
@@ -1937,16 +2077,113 @@ def write_subject(root: str, img=(1080, 1920), n_frames: int = 3, n_points: int 
         f.write("".join(f"{i}.png\n" for i in range(n_frames)))
 
 
+def write_human_model_dir(root: str, rings: int = 80, segs: int = 130, num_shape: int = 16,
+                          num_expr: int = 8, seed: int = 0) -> dict:
+    """A ``human_model_path`` directory in the released files' layout,
+    written from the synthetic SMPL-X arrays (``assets_io._synthetic_arrays``)
+    with numpy and pickle: ``smplx/SMPLX_MALE.npz`` (shapedirs (V, 3, 400)
+    with the expression basis at columns 300+, posedirs (V, 3, P), the hands'
+    means), ``smplx/SMPL-X__FLAME_vertex_ids.npy`` (the head region),
+    ``smplx/MANO_SMPLX_vertex_ids.pkl``, and under ``flame/`` a FLAME model on
+    the head vertices (``generic_model.pkl`` of plain arrays, its faces the
+    body's faces inside the head, a 5-joint skinning), the landmark
+    embeddings, ``FLAME_texture.npz`` and ``2019/generic_model.pkl``. The real
+    lip vertices (``prior.REAL_LIP_VERTEX_IDX``, up to 8977) need V > 8977:
+    the default body has 10,272 vertices. Returns the arrays written, by
+    file."""
+    import pickle
+
+    import numpy as np
+
+    from exavatar_release_tpu_torch.models.smplx.assets_io import _synthetic_arrays
+    from exavatar_release_tpu_torch.models.smplx.structs import SMPLX_JOINT_NAMES
+
+    rng = np.random.default_rng(seed)
+    a = _synthetic_arrays(rings, segs, num_shape, num_expr, seed=seed)
+    V, J = a["v_template"].shape[0], a["lbs_weights"].shape[1]
+    shapedirs = np.zeros((V, 3, 400), np.float32)
+    shapedirs[:, :, :num_shape] = a["shapedirs"]
+    shapedirs[:, :, 300:300 + num_expr] = a["expr_dirs"]
+    P = a["posedirs"].shape[0]
+    nearest = a["lbs_weights"].argmax(1)
+    head = [SMPLX_JOINT_NAMES.index(n) for n in ("Head", "Jaw", "L_Eye", "R_Eye")]
+    face_ids = np.where(np.isin(nearest, head))[0].astype(np.int64)
+    lhand = np.where((nearest >= 25) & (nearest < 40))[0]
+    rhand = np.where(nearest >= 40)[0]
+    smplx = {
+        "v_template": a["v_template"], "shapedirs": shapedirs,
+        "posedirs": a["posedirs"].T.reshape(V, 3, P), "J_regressor": a["joint_regressor"],
+        "weights": a["lbs_weights"], "f": a["faces"].astype(np.uint32),
+        "lmk_faces_idx": a["lmk_faces_idx"], "lmk_bary_coords": a["lmk_bary_coords"],
+        "dynamic_lmk_faces_idx": a["dyn_lmk_faces_idx"],
+        "dynamic_lmk_bary_coords": a["dyn_lmk_bary_coords"],
+        "hands_meanl": a["pose_mean"][75:120], "hands_meanr": a["pose_mean"][120:165],
+    }
+    # FLAME on the head vertices: the body's faces inside the head, a
+    # 5-joint skinning (Global, Neck, Jaw, L_Eye, R_Eye) from the body's
+    inv = -np.ones(V, np.int64)
+    inv[face_ids] = np.arange(face_ids.size)
+    inside = (inv[a["faces"]] >= 0).all(1)
+    ff = inv[a["faces"][inside]]
+    Vf = face_ids.size
+    fw = a["lbs_weights"][face_ids]
+    fl_w = np.stack([fw[:, 0], fw[:, 12], fw[:, 22], fw[:, 23], fw[:, 24]], 1) + 1e-3
+    fl_w[:, 1] += fw[:, 15]  # the head's own weight rides the neck
+    fl_w /= fl_w.sum(1, keepdims=True)
+    fl_shapedirs = np.zeros((Vf, 3, 400), np.float32)
+    fl_shapedirs[:, :, :num_shape] = rng.normal(0, 0.004, (Vf, 3, num_shape))
+    fl_shapedirs[:, :, 300:300 + num_expr] = rng.normal(0, 0.004, (Vf, 3, num_expr))
+    fl_shapedirs[: Vf // 8, :, 300:] = 0.0  # vertices with no expression support
+    jr = np.zeros((5, Vf), np.float32)
+    for j in range(5):
+        near = np.argsort(-fl_w[:, j])[:6]
+        jr[j, near] = 1.0 / 6
+    flame = {"v_template": a["v_template"][face_ids], "shapedirs": fl_shapedirs,
+             "posedirs": rng.normal(0, 4e-4, (Vf, 3, 36)).astype(np.float32),
+             "J_regressor": jr, "weights": fl_w.astype(np.float32), "f": ff.astype(np.uint32)}
+    F = ff.shape[0]
+    static = {"lmk_face_idx": rng.integers(0, F, 51).astype(np.int64),
+              "lmk_b_coords": rng.dirichlet(np.ones(3), 51)}
+    dynamic = {"lmk_face_idx": rng.integers(0, F, (79, 17)).astype(np.int64),
+               "lmk_b_coords": rng.dirichlet(np.ones(3), (79, 17))}
+    pts = flame["v_template"]
+    lo, hi = pts.min(0), pts.max(0)
+    texture = {"vt": (pts[:, :2] - lo[:2]) / np.maximum(hi[:2] - lo[:2], 1e-6),
+               "ft": ff.astype(np.int64)}
+    for d in ("smplx", "flame/2019"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    np.savez(os.path.join(root, "smplx", "SMPLX_MALE.npz"), **smplx)
+    np.save(os.path.join(root, "smplx", "SMPL-X__FLAME_vertex_ids.npy"), face_ids)
+    hands = {"left_hand": lhand.astype(np.int64), "right_hand": rhand.astype(np.int64)}
+    pickles = {"smplx/MANO_SMPLX_vertex_ids.pkl": hands, "flame/generic_model.pkl": flame,
+               "flame/flame_static_embedding.pkl": static,
+               "flame/2019/generic_model.pkl": {"shapedirs": fl_shapedirs.astype(np.float64),
+                                                "weights": fl_w.astype(np.float64),
+                                                "v_template": flame["v_template"]}}
+    for name, obj in pickles.items():
+        with open(os.path.join(root, name), "wb") as f:
+            pickle.dump(obj, f, protocol=2)
+    np.save(os.path.join(root, "flame", "flame_dynamic_embedding.npy"), dynamic,
+            allow_pickle=True)
+    np.savez(os.path.join(root, "flame", "FLAME_texture.npz"), **texture)
+    return {"smplx": smplx, "flame": flame, "face_ids": face_ids, "hands": hands,
+            "static": static, "dynamic": dynamic, "texture": texture}
+
+
 def phase_apps(device, img=(1080, 1920), n_frames=3, n_points=5000, triplane=(32, 128),
-               num_views=4, extra=()) -> dict:
+               num_views=4, extra=(), human_model=True) -> dict:
     """The four CLIs as a user runs them, on a subject directory written by
     ``write_subject``: ``apps.train.main`` (native frame loader, 2 epochs of
     ``n_frames`` steps, a snapshot each), ``apps.test.main`` and
     ``apps.evaluate.main`` on the last snapshot, ``apps.animate.main`` with a
-    turntable camera over ``num_views`` motion files. Counters at 0 just
-    before the train run and read just after the animate run. ``extra``:
-    more CLI options for every call (``--scene_capacity`` for a rehearsal at
-    a small size)."""
+    turntable camera over ``num_views`` motion files; then the train CLI
+    once more with ``--profile_dir`` past iteration 40 (the frames repeated),
+    whose trace must name the compositing kernels; then, with
+    ``human_model``, the four CLIs (1 epoch) with ``--human_model_path`` on a
+    directory of ``write_human_model_dir`` (10,272 vertices, ~164k human
+    Gaussians). Counters at 0 just before the first train run and read just
+    after the last run. ``extra``: more CLI options for every call
+    (``--scene_capacity`` for a rehearsal at a small size)."""
     import json
     import shutil
     import tempfile
@@ -1958,6 +2195,7 @@ def phase_apps(device, img=(1080, 1920), n_frames=3, n_points=5000, triplane=(32
     from exavatar_release_tpu_torch.avatar.config import AvatarConfig
     from exavatar_release_tpu_torch.data.subject import read_rgb
     from exavatar_release_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
+    from exavatar_release_tpu_torch.utils.profiling import TRACE_FILE
 
     res = {"ok": True}
 
@@ -1966,7 +2204,7 @@ def phase_apps(device, img=(1080, 1920), n_frames=3, n_points=5000, triplane=(32
         log(f"[apps] {name}: {detail} {'ok' if cond else 'FAIL'}")
 
     work = tempfile.mkdtemp(prefix="chip_smoke_apps_")
-    root, out = os.path.join(work, "subject"), os.path.join(work, "out")
+    root = os.path.join(work, "subject")
     t0 = time.perf_counter()
     write_subject(root, img, n_frames, n_points)
     H, W = img
@@ -1974,67 +2212,113 @@ def phase_apps(device, img=(1080, 1920), n_frames=3, n_points=5000, triplane=(32
         f"{time.perf_counter() - t0:.1f} s")
     common = ["--subject_root", root, "--device", device, "--triplane_ch", str(triplane[0]),
               "--triplane_res", str(triplane[1]), *extra]
+
+    def cycle(tag, args, epochs, root=root):
+        """train (``epochs``), test, evaluate and animate with ``args`` on the
+        subject at ``root``."""
+        out = os.path.join(work, f"out_{tag}")
+        t0 = time.perf_counter()
+        run = train.main(args + ["--allow_random_lpips", "--loader", "native", "--epochs",
+                                 str(epochs), "--repeat", "1", "--out_dir", out])
+        r = res[tag] = {"train_s": time.perf_counter() - t0}
+        hist = run.history
+        r["step_s"] = [h["step_s"] for h in hist]
+        r["read_s"] = [h["read_s"] for h in hist]
+        log(f"[apps] {tag} train: {len(hist)} steps in {r['train_s']:.2f} s; per step, step s "
+            f"{[round(x, 4) for x in r['step_s']]}, read s {[round(x, 4) for x in r['read_s']]}; "
+            f"totals {[round(h['total'], 4) for h in hist]}; settings at the end {run.settings}")
+        model_dir = os.path.join(out, "model_dump")
+        snaps = sorted(f for f in os.listdir(model_dir) if f.endswith(".npz"))
+        ckpt = latest_checkpoint(model_dir)
+        cfg = AvatarConfig(triplane_ch=triplane[0], triplane_res=triplane[1])
+        loaded = [load_checkpoint(os.path.join(model_dir, f), cfg, device) for f in snaps]
+        finite = all(np.isfinite(h["total"]) for h in hist)
+        check(f"{tag} train", len(hist) == epochs * n_frames
+              and snaps == [f"snapshot_{e}.npz" for e in range(epochs)]
+              and [e for _, e in loaded] == list(range(epochs))
+              and loaded[-1][0].itr == epochs * n_frames and finite,
+              f"{len(hist)} steps, snapshots {snaps} load (epochs {[e for _, e in loaded]}), "
+              f"losses finite")
+        del loaded
+
+        result_dir = os.path.join(out, "result")
+        t0 = time.perf_counter()
+        test.main(args + ["--ckpt", ckpt, "--out_dir", result_dir])
+        r["test_s"] = time.perf_counter() - t0
+        blank = []
+        for i in range(n_frames):
+            im = read_rgb(os.path.join(result_dir, f"{i}_scene_human_img_refined_composed.png"))
+            if float(im.std()) == 0.0:
+                blank.append(i)
+        n_png = len([f for f in os.listdir(result_dir) if f.endswith(".png")])
+        check(f"{tag} test", n_png == 9 * n_frames and not blank,
+              f"{n_png} PNGs in {r['test_s']:.2f} s, blank composed frames {blank}")
+
+        t0 = time.perf_counter()
+        metrics = evaluate.main(args + ["--ckpt", ckpt, "--out_json",
+                                        os.path.join(out, "metrics.json")])
+        r["evaluate_s"] = time.perf_counter() - t0
+        with open(os.path.join(out, "metrics.json")) as f:
+            written = json.load(f)
+        check(f"{tag} evaluate", written == metrics
+              and all(math.isfinite(v) for v in metrics.values()),
+              f"{metrics} in {r['evaluate_s']:.2f} s")
+
+        motion = os.path.join(work, f"motion_{tag}")
+        os.makedirs(motion)
+        for v in range(num_views):
+            shutil.copy(os.path.join(root, "smplx_optimized", "smplx_params",
+                                     f"{v % n_frames}.json"),
+                        os.path.join(motion, f"{v:04d}.json"))
+        t0 = time.perf_counter()
+        frames = animate.main(args + ["--ckpt", ckpt, "--motion_dir", motion, "--view_rot",
+                                      "--num_views", str(num_views), "--out_dir",
+                                      os.path.join(out, "animate")])
+        r["animate_s"] = time.perf_counter() - t0
+        check(f"{tag} animate", len(frames) == num_views and all(os.path.exists(p) for p in frames),
+              f"{len(frames)} frames in {r['animate_s']:.2f} s")
+
     reset_launches()
-    t0 = time.perf_counter()
-    run = train.main(common + ["--allow_random_lpips", "--loader", "native", "--epochs", "2",
-                               "--repeat", "1", "--out_dir", out])
-    res["train_s"] = time.perf_counter() - t0
-    hist = run.history
-    res["step_s"] = [h["step_s"] for h in hist]
-    res["read_s"] = [h["read_s"] for h in hist]
-    log(f"[apps] train: {len(hist)} steps in {res['train_s']:.2f} s; per step, step s "
-        f"{[round(x, 4) for x in res['step_s']]}, read s {[round(x, 4) for x in res['read_s']]}; "
-        f"totals {[round(h['total'], 4) for h in hist]}; settings at the end {run.settings}")
-    model_dir = os.path.join(out, "model_dump")
-    snaps = sorted(f for f in os.listdir(model_dir) if f.endswith(".npz"))
-    ckpt = latest_checkpoint(model_dir)
-    cfg = AvatarConfig(triplane_ch=triplane[0], triplane_res=triplane[1])
-    loaded = [load_checkpoint(os.path.join(model_dir, f), cfg, device) for f in snaps]
-    finite = all(np.isfinite(h["total"]) for h in hist)
-    check("train", len(hist) == 2 * n_frames and snaps == ["snapshot_0.npz", "snapshot_1.npz"]
-          and [e for _, e in loaded] == [0, 1] and loaded[-1][0].itr == 2 * n_frames and finite,
-          f"{len(hist)} steps, snapshots {snaps} load (epochs {[e for _, e in loaded]}), "
-          f"losses finite")
-    del loaded
+    cycle("synthetic", common, epochs=2)
 
-    result_dir = os.path.join(out, "result")
+    # --profile_dir: iterations 20-40 traced, the frames repeated past 40
+    prof = os.path.join(work, "profile")
+    repeat = -(-(train.PROFILE_ITRS[1] + 1) // n_frames)
     t0 = time.perf_counter()
-    test.main(common + ["--ckpt", ckpt, "--out_dir", result_dir])
-    res["test_s"] = time.perf_counter() - t0
-    blank = []
-    for i in range(n_frames):
-        im = read_rgb(os.path.join(result_dir, f"{i}_scene_human_img_refined_composed.png"))
-        if float(im.std()) == 0.0:
-            blank.append(i)
-    n_png = len([f for f in os.listdir(result_dir) if f.endswith(".png")])
-    check("test", n_png == 9 * n_frames and not blank,
-          f"{n_png} PNGs in {res['test_s']:.2f} s, blank composed frames {blank}")
+    run = train.main(common + ["--allow_random_lpips", "--loader", "native", "--epochs", "1",
+                               "--repeat", str(repeat), "--out_dir", os.path.join(work, "out_prof"),
+                               "--profile_dir", prof])
+    res["profile_s"] = time.perf_counter() - t0
+    trace_path = os.path.join(prof, TRACE_FILE)
+    found = set()
+    if os.path.exists(trace_path):  # the kernels' names, read in pieces (the trace is large)
+        with open(trace_path, "rb") as f:
+            tail = b""
+            while chunk := f.read(1 << 26):
+                found |= {k for k in ALL_KERNELS if f"{k}_kernel".encode() in tail + chunk}
+                tail = chunk[-256:]
+    found = sorted(found)
+    check("train --profile_dir", len(run.history) == repeat * n_frames
+          and os.path.exists(trace_path)
+          and (device != "cuda" or any(k.startswith("composite_") for k in found)),
+          f"{len(run.history)} steps in {res['profile_s']:.2f} s; {trace_path} "
+          f"({os.path.getsize(trace_path) if os.path.exists(trace_path) else 0} bytes) names the "
+          f"kernels {found}")
 
-    t0 = time.perf_counter()
-    metrics = evaluate.main(common + ["--ckpt", ckpt, "--out_json",
-                                      os.path.join(out, "metrics.json")])
-    res["evaluate_s"] = time.perf_counter() - t0
-    with open(os.path.join(out, "metrics.json")) as f:
-        written = json.load(f)
-    check("evaluate", written == metrics and all(math.isfinite(v) for v in metrics.values()),
-          f"{metrics} in {res['evaluate_s']:.2f} s")
-
-    motion = os.path.join(work, "motion")
-    os.makedirs(motion)
-    for v in range(num_views):
-        shutil.copy(os.path.join(root, "smplx_optimized", "smplx_params", f"{v % n_frames}.json"),
-                    os.path.join(motion, f"{v:04d}.json"))
-    t0 = time.perf_counter()
-    frames = animate.main(common + ["--ckpt", ckpt, "--motion_dir", motion, "--view_rot",
-                                    "--num_views", str(num_views), "--out_dir",
-                                    os.path.join(out, "animate")])
-    res["animate_s"] = time.perf_counter() - t0
-    check("animate", len(frames) == num_views and all(os.path.exists(p) for p in frames),
-          f"{len(frames)} frames in {res['animate_s']:.2f} s")
+    if human_model:
+        hm, root50 = os.path.join(work, "human_model"), os.path.join(work, "subject_expr50")
+        t0 = time.perf_counter()
+        write_human_model_dir(hm)
+        write_subject(root50, img, n_frames, n_points, num_expr=50)
+        log(f"[apps] human_model_path: the released files' layout written from the synthetic "
+            f"arrays, and a subject with 50 expression coefficients, in "
+            f"{time.perf_counter() - t0:.1f} s")
+        args = [root50 if a == root else a for a in common] + ["--human_model_path", hm]
+        cycle("human_model_path", args, epochs=1, root=root50)
     if device == "cuda":
         torch.cuda.synchronize()
     res["launches"] = read_launches()
-    log(f"[apps] launches of train, test, evaluate and animate: {res['launches']}")
+    log(f"[apps] launches of the CLIs' runs: {res['launches']}")
     loaded_mods = sorted({m.split(".")[0] for m in sys.modules} & {"cv2", "jax", "jaxlib"})
     check("no cv2 and no jax loaded", not loaded_mods, f"{loaded_mods or 'none'} in sys.modules")
     shutil.rmtree(work)
@@ -2068,26 +2352,38 @@ def main() -> int:
             f"{ld} B loaded, {frame} B stack frame")
 
     # ``--phases a,b`` runs a part (random, goldens, animate, frame, train,
-    # probes, apps) and
+    # probes, convergence, apps) and
     # prints no result line: the contract needs every phase
     only = None
     if "--phases" in sys.argv[1:]:
         only = set(sys.argv[sys.argv.index("--phases") + 1].split(","))
     want = lambda name: only is None or name in only
     ok = True
-    rnd = phase_kernels_random("cuda") if want("random") else None
+    phase_s = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        phase_s[name] = time.perf_counter() - t0
+        log(f"[time] phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    rnd = timed("random", lambda: phase_kernels_random("cuda")) if want("random") else None
     ok &= rnd is None or rnd["ok"]
-    ok &= not want("goldens") or phase_goldens("cuda")
-    anim = phase_animate("cuda") if want("animate") else None
+    ok &= not want("goldens") or timed("goldens", lambda: phase_goldens("cuda"))
+    anim = timed("animate", lambda: phase_animate("cuda")) if want("animate") else None
     ok &= anim is None or anim["ok"]
-    frm = phase_frame("cuda") if want("frame") else None
+    frm = timed("frame", lambda: phase_frame("cuda")) if want("frame") else None
     ok &= frm is None or frm["ok"]
-    trn = phase_train("cuda") if want("train") else None
+    trn = timed("train", lambda: phase_train("cuda")) if want("train") else None
     ok &= trn is None or trn["ok"]
-    prb = phase_probes("cuda") if want("probes") else None
+    prb = timed("probes", lambda: phase_probes("cuda")) if want("probes") else None
     ok &= prb is None or prb["ok"]
-    app = phase_apps("cuda") if want("apps") else None
+    cnv = timed("convergence", lambda: phase_convergence("cuda")) if want("convergence") else None
+    ok &= cnv is None or cnv["ok"]
+    app = timed("apps", lambda: phase_apps("cuda")) if want("apps") else None
     ok &= app is None or app["ok"]
+    log(f"[time] the whole run: {time.perf_counter() - T_START:.1f} s (phases {phase_s})")
     if only is not None:
         log(f"chip_smoke: phases {sorted(only)} {'passed' if ok else 'FAILED'}; a partial run "
             f"prints no result line")
@@ -2110,7 +2406,8 @@ def main() -> int:
         by_path = {"animate": anim["launches"][name],
                    **{f"frame_{k}": v[name] for k, v in frm["launches"].items()},
                    **{k: v[name] for k, v in trn["launches"].items()},
-                   "probes": prb["launches"][name], "apps": app["launches"][name]}
+                   "probes": prb["launches"][name], "convergence": cnv["launches"][name],
+                   "apps": app["launches"][name]}
         entry = {
             "name": name, "route": "cuda", "source": KERNEL_SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),
@@ -2133,6 +2430,12 @@ def main() -> int:
                                                rnd[name]["max_row_rel_err"])
         if name in pair_res:  # kernels 1-8, from this run's build log
             entry["registers_smem_spills"] = pair_res[name]
+        if name == "tile_windows":  # the probe shape above; the binning shape here
+            entry.update({k: st[k] for k in ("ms_of", "hot_ms", "host_ms", "floor_ms",
+                                              "gather_ms", "wrapper_loop_ms")})
+            entry["binning_shape"] = {k: anim["windows"][k] for k in (
+                "device_ms", "hot_ms", "in_frame_ms", "host_ms", "floor_ms", "gather_ms",
+                "bound_ms", "live")}
         kernels.append(entry)
     if not ok:
         print("chip_smoke: FAILED (see the lines above)", file=sys.stderr)

@@ -8,11 +8,12 @@ kernel for Hopper (``csrc/``), built with nvcc at first use and bound with
 ctypes; each has a plain PyTorch twin that CPU tensors run through.
 
 Subpackages (ported so far: the animate render path, the differentiable
-frame, the whole train step with its trainer loop, the avatar CLIs and the
-kernel probes)
+frame, the whole train step with its trainer loop, the avatar CLIs, the
+kernel probes, the real-asset loaders, profiling and the learning check)
 -----------
 core      : rotations, cameras, geometry, spherical harmonics
-models    : SMPL-X body model (LBS, FK, subdivision, prior, synthetic assets)
+models    : SMPL-X and FLAME body models (LBS, FK, subdivision, prior, the
+            released files' loaders, synthetic assets)
 nn        : Linear -> GroupNorm -> ReLU MLP
 ops       : grid sampling, KNN, the differentiable 3DGS rasterizer and its
             kernels (channel-major, pair-major and row-major compositing,
@@ -28,10 +29,12 @@ train     : ``loss_and_grads`` and ``train_step``, Adam with named groups and
             npz layout
 data      : COLMAP text and the reference's subject directory layout
 native    : the threaded PNG decoder and prefetcher (C++, g++ at first use)
-utils     : logger and timer, a PNG writer, video export
+utils     : logger and timer, a PNG writer, video export, torch.profiler
+            traces and the roofline model, the JAX package's random draw
 apps      : the CLIs ``train``, ``test``, ``evaluate`` and ``animate`` on a
             subject directory, with ``train_loop`` and ``render_motion``
-tools     : ``kvariants`` and ``win_probe``, the kernel probes
+tools     : ``kvariants`` and ``win_probe``, the kernel probes;
+            ``convergence_demo``, the learning check
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,11 @@
 """Shared app plumbing: build a full avatar setup from a subject directory
 (counterpart of exavatar_release_tpu/apps/common.py).
 
-The port runs on the synthetic SMPL-X assets: real SMPL-X/FLAME files and
-their tables wait for the real-asset loaders (ROADMAP.md Queue 1, item 3),
-and a ``--human_model_path`` is refused until then. Images are read as
-data/subject.py reads them (the native PNG decoder; cv2 only where the
-caller asks or the decoder does not take a file).
+With ``--human_model_path`` the apps load the released SMPL-X/FLAME files
+and their correspondence tables from it, and render the face with FLAME's
+topology and UV atlas; without it they run the synthetic body. Images are
+read as data/subject.py reads them (the native PNG decoder; cv2 only where
+the caller asks or the decoder does not take a file).
 """
 from __future__ import annotations
 
@@ -23,7 +23,16 @@ from ..avatar.model import AvatarTrainables, FrameData, build_statics
 from ..avatar.param_dict import init_param_frames
 from ..core.camera import Camera
 from ..data.subject import SubjectData, read_rgb
-from ..models.smplx import SMPLXIDInfo, build_prior, synthetic_smplx_assets
+from ..models.smplx import (
+    SMPLXIDInfo,
+    build_prior,
+    load_flame_assets,
+    load_flame_uv,
+    load_prior_tables,
+    load_smplx_assets,
+    synthetic_smplx_assets,
+)
+from ..models.smplx.prior import REAL_LIP_VERTEX_IDX
 from ..ops.lpips import init_lpips_random, load_lpips
 from ..train.loop import ModelBundle
 
@@ -76,11 +85,13 @@ def synthetic_face_mesh(prior):
 
 
 def face_mesh_for(human_model_path: Optional[str], prior):
-    """The face mesh for the face render: the synthetic placeholder (the
-    FLAME topology and UV atlas of a real ``human_model_path`` are not
-    ported)."""
+    """The face mesh for the face render, (faces, vertex uv, face uv): FLAME's
+    topology and UV atlas under a ``human_model_path``, else the synthetic
+    placeholder."""
     if human_model_path is not None:
-        refuse("--human_model_path", "Queue 1 item 3 (real-asset loaders)")
+        flame = load_flame_assets(human_model_path, device="cpu")
+        vertex_uv, face_uv = load_flame_uv(human_model_path)
+        return flame.faces.numpy(), vertex_uv, face_uv
     return synthetic_face_mesh(prior)
 
 
@@ -89,10 +100,16 @@ SYNTHETIC_BODY = {"rings": 16, "segs": 24}
 
 
 def build_prior_for(human_model_path: Optional[str], gender: str = "male", device="cuda"):
-    """The synthetic SMPL-X prior (``SYNTHETIC_BODY``); real assets are
-    refused."""
-    if human_model_path is not None:
-        refuse("--human_model_path", "Queue 1 item 3 (real-asset loaders)")
+    """The prior of the released assets and tables under an existing
+    ``human_model_path``, else of the synthetic body (``SYNTHETIC_BODY``)."""
+    if human_model_path is not None and osp.exists(human_model_path):
+        assets = load_smplx_assets(human_model_path, gender, device=device)
+        tables = load_prior_tables(human_model_path)
+        return build_prior(assets, lip_vertex_idx=REAL_LIP_VERTEX_IDX,
+                           face_vertex_idx=tables["face_vertex_idx"],
+                           lhand_vertex_idx=tables["lhand_vertex_idx"],
+                           rhand_vertex_idx=tables["rhand_vertex_idx"],
+                           expr_vertex_idx=tables.get("expr_vertex_idx"))
     return build_prior(synthetic_smplx_assets(**SYNTHETIC_BODY, device=device))
 
 

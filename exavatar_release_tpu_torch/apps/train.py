@@ -9,12 +9,14 @@ exavatar_release_tpu/apps/train.py).
 ``train_loop``: epochs of ``train_step`` + ``maybe_adjust_gaussians`` under the
 capacity governor, frames decoded per step in the epoch's order (the native
 prefetcher or cv2, ``--loader``), a ``speed: total(step r read)`` log line per
-step and a snapshot per epoch. ``--mesh`` and ``--gaussian_shard`` wait for
-``parallel/`` and ``--profile_dir`` for the port's tracing; each is refused.
+step and a snapshot per epoch. ``--profile_dir`` traces iterations 20-40
+with ``torch.profiler`` into ``<profile_dir>/trace.json`` (a Chrome trace).
+``--mesh`` and ``--gaussian_shard`` wait for ``parallel/``; each is refused.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os.path as osp
 from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Union
@@ -35,6 +37,10 @@ from ..train.loop import (
 )
 from ..train.optim import GroupAdam
 from ..utils.logging import Timer
+from ..utils.profiling import TRACE_FILE, trace
+
+# iterations [start, stop) that ``profile_dir`` traces, as the JAX CLI does
+PROFILE_ITRS = (20, 40)
 
 # diagnostics of ``train_step``'s loss dict that are no loss terms
 _DIAGNOSTICS = ("raster_dropped", "raster_dropped_pairs", "raster_truncated",
@@ -101,6 +107,7 @@ def train_loop(
     max_itrs: Optional[int] = None,
     seed: int = 0,
     log: Optional[Callable[[str], None]] = None,
+    profile_dir: Optional[str] = None,
 ) -> TrainResult:
     """Epochs ``start .. cfg.end_epoch`` over ``frames`` (FrameData already on
     the device, or a source with ``len`` and ``epoch(order)`` such as
@@ -115,7 +122,9 @@ def train_loop(
     step. Each step's record in ``history`` also holds ``read_s`` (waiting for
     the frame) and ``step_s`` (the step, the adjustment and that transfer),
     and the log line the trainer's ``speed: total(step r read)`` averages of
-    the JAX package's Timer (the first ten steps are left out)."""
+    the JAX package's Timer (the first ten steps are left out). With
+    ``profile_dir`` the iterations ``PROFILE_ITRS`` run under
+    ``utils.profiling.trace``, which writes ``profile_dir/trace.json``."""
     log = log or (lambda msg: None)
     dev = state.trainables.scene.mean.device
     source = frames if hasattr(frames, "epoch") else _FramesInMemory(frames)
@@ -135,51 +144,58 @@ def train_loop(
     tot_timer, gpu_timer, read_timer = Timer(), Timer(), Timer()
 
     cur_itr = start_epoch * itr_per_epoch
-    for epoch in range(start_epoch, cfg.end_epoch):
-        order = rng.permutation(itr_per_epoch)
-        tot_timer.tic()
-        read_timer.tic()
-        epoch_frames = source.epoch(order)
-        for itr, k in enumerate(order):
-            frame = next(epoch_frames)
-            read_timer.toc()
-            gpu_timer.tic()
-            state, losses = train_step(
-                state, bundle, frame, optimizer, cfg, is_warmup=cfg.is_warmup(cur_itr),
-                fit_pose_to_test=fit_pose_to_test, settings=settings, generator=gen)
-            state, dstats = maybe_adjust_gaussians(state, cur_itr, cfg, fit_pose_to_test,
-                                                   generator=gen)
-            # one transfer for the whole dict: the governor needs the counters
-            names = list(losses)
-            values = torch.stack([losses[n].float() for n in names]).tolist()
-            gpu_timer.toc()
-            rec = dict(zip(names, values))
-            msg = [f"Epoch {epoch}/{cfg.end_epoch} itr {itr}/{itr_per_epoch}:",
-                   "speed: %.2f(%.2fs r%.2f)s/itr" % (tot_timer.average_time,
-                                                     gpu_timer.average_time,
-                                                     read_timer.average_time)]
-            msg += [f"loss_{n}: {v:.4f}" for n, v in rec.items() if n not in _DIAGNOSTICS]
-            if rec["raster_dropped"] > 0:
-                msg.append(f"raster_dropped: {int(rec['raster_dropped'])}")
-            settings = governor.update(rec["raster_dropped_pairs"], rec["raster_truncated"],
-                                       rec["raster_exchange_overflow"])
-            if dstats is not None:
-                rec.update({k2: float(v) for k2, v in dstats.items()})
-                msg.append(f"scene_live: {int(dstats['n_live'])}")
-            log(" ".join(msg))
-            history.append({"itr": cur_itr, "epoch": epoch, "frame": int(k), **rec,
-                            "read_s": read_timer.diff, "step_s": gpu_timer.diff})
-            tot_timer.toc()
+    # the trace of PROFILE_ITRS, closed also when the run ends inside them
+    with contextlib.ExitStack() as profiling:
+        for epoch in range(start_epoch, cfg.end_epoch):
+            order = rng.permutation(itr_per_epoch)
             tot_timer.tic()
             read_timer.tic()
-            cur_itr += 1
+            epoch_frames = source.epoch(order)
+            for itr, k in enumerate(order):
+                frame = next(epoch_frames)
+                read_timer.toc()
+                if profile_dir is not None and cur_itr == PROFILE_ITRS[0]:
+                    profiling.enter_context(trace(profile_dir))
+                if profile_dir is not None and cur_itr == PROFILE_ITRS[1]:
+                    profiling.close()
+                    log(f"profiler trace written to {osp.join(profile_dir, TRACE_FILE)}")
+                gpu_timer.tic()
+                state, losses = train_step(
+                    state, bundle, frame, optimizer, cfg, is_warmup=cfg.is_warmup(cur_itr),
+                    fit_pose_to_test=fit_pose_to_test, settings=settings, generator=gen)
+                state, dstats = maybe_adjust_gaussians(state, cur_itr, cfg, fit_pose_to_test,
+                                                       generator=gen)
+                # one transfer for the whole dict: the governor needs the counters
+                names = list(losses)
+                values = torch.stack([losses[n].float() for n in names]).tolist()
+                gpu_timer.toc()
+                rec = dict(zip(names, values))
+                msg = [f"Epoch {epoch}/{cfg.end_epoch} itr {itr}/{itr_per_epoch}:",
+                       "speed: %.2f(%.2fs r%.2f)s/itr" % (tot_timer.average_time,
+                                                         gpu_timer.average_time,
+                                                         read_timer.average_time)]
+                msg += [f"loss_{n}: {v:.4f}" for n, v in rec.items() if n not in _DIAGNOSTICS]
+                if rec["raster_dropped"] > 0:
+                    msg.append(f"raster_dropped: {int(rec['raster_dropped'])}")
+                settings = governor.update(rec["raster_dropped_pairs"], rec["raster_truncated"],
+                                           rec["raster_exchange_overflow"])
+                if dstats is not None:
+                    rec.update({k2: float(v) for k2, v in dstats.items()})
+                    msg.append(f"scene_live: {int(dstats['n_live'])}")
+                log(" ".join(msg))
+                history.append({"itr": cur_itr, "epoch": epoch, "frame": int(k), **rec,
+                                "read_s": read_timer.diff, "step_s": gpu_timer.diff})
+                tot_timer.toc()
+                tot_timer.tic()
+                read_timer.tic()
+                cur_itr += 1
+                if max_itrs is not None and cur_itr >= max_itrs:
+                    break
+            if model_dir is not None:
+                save_checkpoint(model_dir, state, epoch)
+                log(f"saved snapshot_{epoch}")
             if max_itrs is not None and cur_itr >= max_itrs:
                 break
-        if model_dir is not None:
-            save_checkpoint(model_dir, state, epoch)
-            log(f"saved snapshot_{epoch}")
-        if max_itrs is not None and cur_itr >= max_itrs:
-            break
     return TrainResult(state, settings, history, cur_itr)
 
 
@@ -208,15 +224,14 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     ap.add_argument("--gaussian_shard", action="store_true",
                     help="not ported: waits for parallel/")
     ap.add_argument("--max_itrs", type=int, default=None, help="debug cap")
-    ap.add_argument("--profile_dir", default=None, help="not ported: refused")
+    ap.add_argument("--profile_dir", default=None,
+                    help="trace iterations 20-40 with torch.profiler into <dir>/trace.json")
     ap.add_argument("--mesh", default=None, help="not ported: waits for parallel/")
     args = ap.parse_args(argv)
     if args.mesh is not None:
         refuse("--mesh", "Queue 1 item 5 (parallel/ on torch.distributed)")
     if args.gaussian_shard:
         refuse("--gaussian_shard", "Queue 1 item 5 (parallel/ on torch.distributed)")
-    if args.profile_dir is not None:
-        refuse("--profile_dir", "Queue 1 item 1 (the port's benchmark and its tracing)")
 
     from ..data.subject import load_subject
     from ..native import build_error, native_available
@@ -260,7 +275,7 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
                       cfg, governor=governor, fit_pose_to_test=args.fit_pose_to_test,
                       model_dir=osp.join(args.out_dir, "model_dump"),
                       continue_train=args.continue_train, max_itrs=args.max_itrs, seed=0,
-                      log=logger.info)
+                      log=logger.info, profile_dir=args.profile_dir)
 
 
 if __name__ == "__main__":

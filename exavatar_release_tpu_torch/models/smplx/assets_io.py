@@ -1,20 +1,102 @@
-"""Synthetic SMPL-X assets (counterpart of
-exavatar_release_tpu/models/smplx/assets_io.py:synthetic_smplx_assets).
+"""SMPL-X assets: the released files or synthetic test assets (counterpart
+of exavatar_release_tpu/models/smplx/assets_io.py).
 
-A deterministic, structurally faithful model (full 55-joint SMPL-X skeleton,
-manifold ellipsoid mesh, landmark tables) made with numpy from a seed, so
-every layer runs without licensed files. The numpy code is the reference's
-own, so the arrays are bit-identical to the JAX package's. Loaders for the
-released SMPL-X files are not ported yet.
+``load_smplx_assets`` reads the SMPL-X 1.1 release the reference uses
+(``smplx/SMPLX_{GENDER}.npz``, 100 shape and 50 expression dims) and grafts
+FLAME's expression basis onto the face vertices, with numpy and pickle as the
+JAX package does. ``synthetic_smplx_assets`` is a deterministic, structurally
+faithful model (full 55-joint SMPL-X skeleton, manifold ellipsoid mesh,
+landmark tables) made with numpy from a seed, so every layer runs without
+licensed files; its numpy code is the JAX package's own, so the arrays are
+bit-identical.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import os.path as osp
+import pickle
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .structs import SMPLX_NECK_KIN_CHAIN, SMPLX_PARENTS, SMPLXAssets
+
+SHAPE_SPACE_DIM = 300  # smplx.SMPLX.SHAPE_SPACE_DIM (layout of shapedirs)
+NUM_SHAPE = 100
+NUM_EXPR = 50
+
+
+def load_smplx_assets(
+    human_model_path: str,
+    gender: str = "neutral",
+    num_shape: int = NUM_SHAPE,
+    num_expr: int = NUM_EXPR,
+    graft_flame_expr: bool = True,
+    device="cuda",
+) -> SMPLXAssets:
+    """Load released SMPL-X 1.1 assets from
+    ``human_model_path/smplx/SMPLX_{GENDER}.npz``. With ``graft_flame_expr``
+    the expression dirs of the face vertices
+    (``smplx/SMPL-X__FLAME_vertex_ids.npy``) become FLAME's own, where a FLAME
+    model is found under ``human_model_path/flame``."""
+    path = osp.join(human_model_path, "smplx", f"SMPLX_{gender.upper()}.npz")
+    data = np.load(path, allow_pickle=True)
+
+    shapedirs_all = np.asarray(data["shapedirs"], np.float32)  # (V, 3, 400)
+    shapedirs = shapedirs_all[:, :, :num_shape]
+    expr_dirs = shapedirs_all[:, :, SHAPE_SPACE_DIM:SHAPE_SPACE_DIM + num_expr]
+    if graft_flame_expr:
+        flame_expr = _load_flame_expr_dirs(human_model_path, num_expr)
+        if flame_expr is not None:
+            face_vertex_idx = np.load(
+                osp.join(human_model_path, "smplx", "SMPL-X__FLAME_vertex_ids.npy"))
+            expr_dirs = expr_dirs.copy()
+            expr_dirs[face_vertex_idx] = flame_expr
+
+    posedirs = np.asarray(data["posedirs"], np.float32)  # (V, 3, P)
+    V = posedirs.shape[0]
+    posedirs = posedirs.reshape(V * 3, -1).T  # (P, V*3), smplx layout
+
+    # hands mean: flat_hand_mean=False adds the MANO mean to hand pose blocks
+    pose_mean = np.zeros((len(SMPLX_PARENTS) * 3,), np.float32)
+    if "hands_meanl" in data:
+        pose_mean[75:120] = np.asarray(data["hands_meanl"], np.float32).reshape(-1)
+        pose_mean[120:165] = np.asarray(data["hands_meanr"], np.float32).reshape(-1)
+
+    arrays = dict(
+        v_template=np.asarray(data["v_template"], np.float32),
+        shapedirs=shapedirs, expr_dirs=expr_dirs, posedirs=posedirs,
+        joint_regressor=np.asarray(data["J_regressor"], np.float32),
+        lbs_weights=np.asarray(data["weights"], np.float32),
+        pose_mean=pose_mean,
+        faces=np.asarray(data["f"], np.int32),
+        lmk_faces_idx=np.asarray(data["lmk_faces_idx"], np.int32),
+        lmk_bary_coords=np.asarray(data["lmk_bary_coords"], np.float32),
+        dyn_lmk_faces_idx=np.asarray(data["dynamic_lmk_faces_idx"], np.int32),
+        dyn_lmk_bary_coords=np.asarray(data["dynamic_lmk_bary_coords"], np.float32),
+    )
+    return SMPLXAssets(
+        **{k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrays.items()},
+        parents=SMPLX_PARENTS,
+        neck_kin_chain=SMPLX_NECK_KIN_CHAIN,
+    )
+
+
+def _load_flame_expr_dirs(human_model_path: str, num_expr: int) -> Optional[np.ndarray]:
+    """FLAME's expression dirs (V_flame, 3, num_expr) from the npz model or
+    ``generic_model.pkl`` under ``human_model_path/flame``; None without one."""
+    for name in ("FLAME_NEUTRAL.npz", "generic_model.npz"):
+        p = osp.join(human_model_path, "flame", name)
+        if osp.exists(p):
+            sd = np.asarray(np.load(p, allow_pickle=True)["shapedirs"], np.float32)
+            return sd[:, :, SHAPE_SPACE_DIM:SHAPE_SPACE_DIM + num_expr]
+    p = osp.join(human_model_path, "flame", "generic_model.pkl")
+    if osp.exists(p):
+        with open(p, "rb") as f:
+            d = pickle.load(f, encoding="latin1")
+        sd = np.asarray(d["shapedirs"], np.float32)
+        return sd[:, :, SHAPE_SPACE_DIM:SHAPE_SPACE_DIM + num_expr]
+    return None
 
 
 def _skeleton_rest_joints() -> np.ndarray:

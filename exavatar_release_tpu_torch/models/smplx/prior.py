@@ -3,14 +3,16 @@
 
 Everything is precomputed once by ``build_prior``; the per-subject identity
 info is a separate ``SMPLXIDInfo`` passed explicitly through the model.
-The port derives the part tables from the assets themselves (the
-synthetic path); loading the released correspondence files waits for the
-real-asset loaders (ROADMAP.md Queue 1).
+With real assets the part tables come from the released correspondence files
+(``load_prior_tables``); with synthetic ones ``build_prior`` derives them from
+the skinning weights and blendshape support.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import os.path as osp
+import pickle
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,20 +107,68 @@ def _derive_expr_vertex_idx(expr_dirs: np.ndarray, lbs_weights: np.ndarray) -> n
     return np.where(keep)[0].astype(np.int32)
 
 
-def build_prior(assets: SMPLXAssets, subdivide_levels: int = 2) -> SMPLXPrior:
-    """Precompute the prior on the assets' device, deriving every table from
-    the skinning weights and blendshape support."""
+def derive_expr_vertex_idx_flame2019(flame2019_path: str, face_vertex_idx: np.ndarray,
+                                     expr_param_dim: int = 50) -> np.ndarray:
+    """Real-asset expression-vertex table: the FLAME-2019 vertices with any
+    nonzero expression blendshape (shapedirs columns 300:300+expr_param_dim;
+    FLAME.SHAPE_SPACE_DIM == 300), minus those whose dominant skinning joint
+    is the neck or an eyeball, mapped to SMPL-X ids through
+    ``face_vertex_idx`` (the SMPL-X<->FLAME correspondence)."""
+    with open(flame2019_path, "rb") as f:
+        fl = pickle.load(f, encoding="latin1")
+    sd = np.asarray(fl["shapedirs"])
+    support = np.where((sd[:, :, 300:300 + expr_param_dim] != 0).sum((1, 2)) > 0)[0]
+    flame_joints = ("Neck", "Head", "Jaw", "L_Eye", "R_Eye")
+    dom = np.asarray(fl["weights"]).argmax(1)
+    bad = np.isin(dom, [flame_joints.index(n) for n in ("Neck", "L_Eye", "R_Eye")])
+    keep = np.asarray([i for i in support if not bad[i]])
+    return np.asarray(face_vertex_idx)[keep].astype(np.int32)
+
+
+def load_prior_tables(human_model_path: str) -> dict:
+    """The released correspondence tables under ``human_model_path``:
+    ``face_vertex_idx`` (smplx/SMPL-X__FLAME_vertex_ids.npy), ``lhand_/
+    rhand_vertex_idx`` (smplx/MANO_SMPLX_vertex_ids.pkl) and, where
+    flame/2019/generic_model.pkl is, ``expr_vertex_idx``; int32 numpy."""
+    out = {}
+    p = osp.join(human_model_path, "smplx", "SMPL-X__FLAME_vertex_ids.npy")
+    out["face_vertex_idx"] = np.load(p).astype(np.int32)
+    with open(osp.join(human_model_path, "smplx", "MANO_SMPLX_vertex_ids.pkl"), "rb") as f:
+        hand = pickle.load(f, encoding="latin1")
+    out["lhand_vertex_idx"] = hand["left_hand"].astype(np.int32)
+    out["rhand_vertex_idx"] = hand["right_hand"].astype(np.int32)
+    flame2019 = osp.join(human_model_path, "flame", "2019", "generic_model.pkl")
+    if osp.exists(flame2019):
+        out["expr_vertex_idx"] = derive_expr_vertex_idx_flame2019(flame2019,
+                                                                  out["face_vertex_idx"])
+    return out
+
+
+def build_prior(
+    assets: SMPLXAssets,
+    lip_vertex_idx: Optional[Tuple[int, ...]] = None,
+    face_vertex_idx: Optional[np.ndarray] = None,
+    lhand_vertex_idx: Optional[np.ndarray] = None,
+    rhand_vertex_idx: Optional[np.ndarray] = None,
+    expr_vertex_idx: Optional[np.ndarray] = None,
+    subdivide_levels: int = 2,
+) -> SMPLXPrior:
+    """Precompute the prior on the assets' device. With real assets pass the
+    tables of ``load_prior_tables`` and ``lip_vertex_idx=REAL_LIP_VERTEX_IDX``;
+    a table not given is derived from the skinning weights and blendshape
+    support (the synthetic path)."""
     device = assets.v_template.device
     V = assets.num_vertices
     faces = assets.faces.cpu().numpy().astype(np.int64)
     w = assets.lbs_weights.cpu().numpy()
 
-    if V > max(REAL_LIP_VERTEX_IDX):
-        lip_vertex_idx = REAL_LIP_VERTEX_IDX
-    else:
-        # small meshes: 8 face-region verts nearest the jaw joint
-        jaw = SMPLX_JOINT_NAMES.index("Jaw")
-        lip_vertex_idx = tuple(np.argsort(-w[:, jaw])[:8].astype(int).tolist())
+    if lip_vertex_idx is None:
+        if V > max(REAL_LIP_VERTEX_IDX):
+            lip_vertex_idx = REAL_LIP_VERTEX_IDX
+        else:
+            # small meshes: 8 face-region verts nearest the jaw joint
+            jaw = SMPLX_JOINT_NAMES.index("Jaw")
+            lip_vertex_idx = tuple(np.argsort(-w[:, jaw])[:8].astype(int).tolist())
 
     is_cavity = np.zeros((V,), np.float32)
     is_cavity[list(lip_vertex_idx)] = 1.0
@@ -129,8 +179,12 @@ def build_prior(assets: SMPLXAssets, subdivide_levels: int = 2) -> SMPLXPrior:
     )
     faces_with_cavity = np.concatenate([faces, cavity_faces], axis=0).astype(np.int32)
 
-    lhand_idx, rhand_idx, face_idx = _derive_part_tables(w)
-    expr_idx = _derive_expr_vertex_idx(assets.expr_dirs.cpu().numpy(), w)
+    derived_l, derived_r, derived_f = _derive_part_tables(w)
+    lhand_idx = derived_l if lhand_vertex_idx is None else lhand_vertex_idx
+    rhand_idx = derived_r if rhand_vertex_idx is None else rhand_vertex_idx
+    face_idx = derived_f if face_vertex_idx is None else face_vertex_idx
+    expr_idx = (_derive_expr_vertex_idx(assets.expr_dirs.cpu().numpy(), w)
+                if expr_vertex_idx is None else expr_vertex_idx)
 
     # 大 pose: legs split, mouth open
     neutral_body_pose = np.zeros((21, 3), np.float32)
@@ -149,14 +203,15 @@ def build_prior(assets: SMPLXAssets, subdivide_levels: int = 2) -> SMPLXPrior:
         return upsampled_mask(m)
 
     t = lambda a: torch.from_numpy(np.asarray(a)).to(device)
+    i32 = lambda a: t(np.asarray(a, np.int32))
     return SMPLXPrior(
         assets=assets,
         faces_with_cavity=t(faces_with_cavity),
         is_cavity=t(is_cavity),
-        face_vertex_idx=t(face_idx),
-        lhand_vertex_idx=t(lhand_idx),
-        rhand_vertex_idx=t(rhand_idx),
-        expr_vertex_idx=t(expr_idx),
+        face_vertex_idx=i32(face_idx),
+        lhand_vertex_idx=i32(lhand_idx),
+        rhand_vertex_idx=i32(rhand_idx),
+        expr_vertex_idx=i32(expr_idx),
         neutral_body_pose=t(neutral_body_pose),
         neutral_jaw_pose=t(neutral_jaw_pose),
         subdividers=tuple(ops),

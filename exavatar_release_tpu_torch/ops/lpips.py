@@ -4,9 +4,10 @@ exavatar_release_tpu/ops/lpips.py).
 lpips v0.1 semantics: input in [-1, 1], imagenet-style shift and scale,
 backbone features at 5 taps, channel unit normalisation, 1x1 linear heads,
 spatial mean, sum over taps. Weights load from the ``.npz`` layout the JAX
-package writes (conv weights are (O, I, kh, kw) in both packages); the
-conversion from torchvision checkpoints waits for the real-asset loaders
-(ROADMAP.md Queue 1).
+package writes (conv weights are (O, I, kh, kw) in both packages);
+``convert_torch_state_dicts`` writes that layout from a torchvision backbone's
+``.features`` state dict and the lpips v0.1 head checkpoint, with no
+torchvision or lpips import.
 """
 from __future__ import annotations
 
@@ -146,3 +147,52 @@ def save_lpips(npz_path: str, params: LPIPSParams) -> None:
     for i, lin in enumerate(params.lin_weights):
         out[f"lin_{i}"] = lin.detach().cpu().numpy()
     np.savez(npz_path, **out)
+
+
+# torchvision nn.Sequential indices of the Conv2d layers in `.features`
+_VGG16_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_ALEX_CONV_IDX = (0, 3, 6, 8, 10)
+
+
+def _sd_array(v) -> np.ndarray:
+    """A state dict's value (tensor or numpy array) as float32 numpy."""
+    if hasattr(v, "detach"):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, np.float32)
+
+
+def convert_torch_state_dicts(out_path: str, features_sd: dict, lins_sd: dict,
+                              net: str = "vgg") -> None:
+    """Write the ``.npz`` layout ``load_lpips`` reads from two plain state
+    dicts:
+
+    * ``features_sd``: ``torchvision.models.vgg16().features.state_dict()``
+      (keys ``0.weight`` ...; a full model's, with ``features.`` prefixes,
+      also works), or alexnet's ``.features`` equivalent;
+    * ``lins_sd``: the lpips v0.1 head checkpoint
+      (``lpips/weights/v0.1/{vgg,alex}.pth``, keys ``lin{i}.model.1.weight``
+      of shape (1, C, 1, 1)).
+
+    Raises KeyError naming the first missing convolution or head."""
+    conv_idx = _VGG16_CONV_IDX if net == "vgg" else _ALEX_CONV_IDX
+
+    def feat_key(i: int, leaf: str) -> str:
+        for k in (f"{i}.{leaf}", f"features.{i}.{leaf}"):
+            if k in features_sd:
+                return k
+        raise KeyError(f"state_dict missing conv {i} ({leaf}); expected torchvision "
+                       f"`.features` layout with Conv2d at indices {conv_idx}")
+
+    out = {"n_conv": len(conv_idx), "net": net}
+    for j, i in enumerate(conv_idx):
+        out[f"conv_w_{j}"] = _sd_array(features_sd[feat_key(i, "weight")])
+        out[f"conv_b_{j}"] = _sd_array(features_sd[feat_key(i, "bias")])
+    for i in range(5):
+        for k in (f"lin{i}.model.1.weight", f"lin{i}.weight", f"lin_{i}"):
+            if k in lins_sd:
+                out[f"lin_{i}"] = _sd_array(lins_sd[k]).reshape(-1)
+                break
+        else:
+            raise KeyError(f"lins state_dict missing head {i}; expected lpips-v0.1 keys "
+                           f"lin{i}.model.1.weight")
+    np.savez(out_path, **out)

@@ -1137,7 +1137,9 @@ def tile_windows_plain(starts, rank_pad, K: int, n: int) -> torch.Tensor:
 def _lib_windows() -> ctypes.CDLL:
     lib = cuda_build.load("windows")
     lib.tile_windows.argtypes = [_P, _P, _P, _I, _I, _I, _P]
-    lib.tile_windows.restype = _I
+    lib.launch_floor.argtypes = [_P]
+    for fn in (lib.tile_windows, lib.launch_floor):
+        fn.restype = _I
     return lib
 
 

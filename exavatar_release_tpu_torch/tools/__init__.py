@@ -1,2 +1,3 @@
-"""Measuring tools of the port: the compositing kernels' stage probes
-(``kvariants``) and the per-tile window build (``win_probe``)."""
+"""Tools of the port: the compositing kernels' stage probes (``kvariants``),
+the per-tile window build (``win_probe``) and the learning check
+(``convergence_demo``)."""

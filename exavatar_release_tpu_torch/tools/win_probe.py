@@ -10,7 +10,9 @@ PyTorch indexing call; that gather is the yardstick here.
 
 Seeded as the JAX tool: T = 2040 tiles, K = 1024, Pm = 1.6M pairs, n = 100k
 Gaussians. Prints the parity (integer for integer) and the mean ms of each
-(CUDA events on the card, the host clock on the CPU).
+call (CUDA events around a loop of calls on the card, the host clock on the
+CPU): a loop of the wrapper measures its host time, several times the
+kernel's; ``kernel_ab.windows_times`` measures the kernel alone.
 """
 from __future__ import annotations
 

@@ -15,6 +15,20 @@ row-major kernels get the same windows repacked (``composite_tiles_fwd_v2`` /
 ``_bwd_v2`` the packed tile-local coefficients, ``composite_tiles_fwd`` /
 ``_bwd`` the global rows with origins) and random cotangents of ``accum`` and
 ``tfinal``. A checkout from before the row-major kernels times the four it has.
+The window kernel (``tile_windows``) is timed on seeded inputs at two
+shapes: the probe tool's (T = 2,040, K = 1,024, 1.6M sorted pairs) and the
+animate frame's dense binning (T = 510, K = 16,384, 280,400 pairs): device
+ms per launch from CUDA events around the replay of a CUDA graph of 200
+launches, each into the next of preallocated outputs that together exceed
+the 50 MB L2 cache twice over (``device_ms``: the output's lines are not in
+L2) and all into one output (``hot_ms``: L2-resident, below the bytes bound
+at these sizes). Both regimes are reported, and beside them the kernel's
+time inside the dense animate frames (``windows_in_frame``: two renders of
+ROOT's three poses with the binning's gather replaced by the kernel, read
+from torch.profiler), the regime the binning's own windows see. The same of
+an empty kernel (the launch floor; in checkouts whose ``windows.cu`` has
+one); the wrapper's host ms per call; and the device ms of its plain
+version (binning's gather) in a graph of 20 calls.
 
     python3 kernel_ab.py --sass ROOT_A ROOT_B
 
@@ -26,6 +40,7 @@ build that has the stage probes' kernels, whether the ``base`` variant's
 instructions are those of the kernel it probes (``base_is_product``).
 """
 import json
+import math
 import os
 import re
 import subprocess
@@ -73,6 +88,162 @@ def compare_sass(root_a: str, root_b: str) -> dict:
                 if base and prod:
                     res["base_is_product"][f"{side}:{d}"] = base[0] == prod[0]
     return res
+
+
+def graph_ms(launch, iters: int = 200, reps: int = 3) -> float:
+    """Device ms per launch: CUDA events around the replay of a CUDA graph
+    of ``iters`` calls of ``launch(stream)``, the least of ``reps`` replays.
+    The graph leaves out the host: what is left is the kernels and the gaps
+    between graph nodes."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        launch(side.cuda_stream)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(iters):
+            launch(stream)
+    g.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
+def window_inputs(T: int, Pm: int, n: int, seed: int, device="cuda"):
+    """Seeded (starts (T + 1,) i32 from 0 to Pm, rank (Pm,) i32 below n), as
+    tools/win_probe.py makes its inputs."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    starts = np.sort(rng.integers(0, Pm, (T + 1,)).astype(np.int32))
+    starts[0], starts[-1] = 0, Pm
+    rank = rng.integers(0, n, (Pm,)).astype(np.int32)
+    return torch.from_numpy(starts).to(device), torch.from_numpy(rank).to(device)
+
+
+# (T, K, sorted pairs, Gaussians) of the probe tool and of the animate
+# frame's dense binning (chip_smoke.py phase_animate: 164,379 human Gaussians)
+WINDOW_SHAPES = {"probe": (2040, 1024, 1_600_000, 100_000),
+                 "binning": (510, 16384, 280_400, 164_379)}
+
+
+L2_BYTES = 50e6  # H100
+
+
+def windows_times(kn, starts, rank, K: int, n: int, iters: int = 200) -> dict:
+    """device_ms (outputs cycled past twice the L2), hot_ms (one output) and
+    floor_ms per launch (``graph_ms``; floor_ms None where the library has no
+    empty kernel), gather_ms per call of the plain version (``graph_ms``),
+    host_ms per call of the wrapper (host clock over ``iters`` calls, then one
+    synchronize) and the bytes bound."""
+    import ctypes
+    import time
+
+    import torch
+
+    lib = kn._lib_windows()
+    T = starts.shape[0] - 1
+    outs = [torch.empty(T, K, dtype=torch.int32, device=starts.device)
+            for _ in range(max(2, math.ceil(2 * L2_BYTES / (4 * T * K))))]
+    turn = [0]
+
+    def launch(stream, cycle=True):
+        out = outs[turn[0] % len(outs)] if cycle else outs[0]
+        turn[0] += 1
+        if lib.tile_windows(starts.data_ptr(), rank.data_ptr(), out.data_ptr(), T, K, n,
+                            stream) != 0:
+            raise RuntimeError("tile_windows launch failed")
+
+    res = {"device_ms": graph_ms(launch, iters),
+           "hot_ms": graph_ms(lambda stream: launch(stream, cycle=False), iters),
+           "floor_ms": None, "outputs_cycled": len(outs)}
+    del outs[1:]
+    # the plain version (binning's gather, a few PyTorch calls) captured the
+    # same way, on the graph's current stream
+    res["gather_ms"] = graph_ms(lambda stream: kn.tile_windows_plain(starts, rank, K, n), 20)
+    if hasattr(lib, "launch_floor"):
+        lib.launch_floor.argtypes = [ctypes.c_void_p]
+        res["floor_ms"] = graph_ms(lambda stream: lib.launch_floor(stream), iters)
+    kn.tile_windows(starts, rank, K, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        kn.tile_windows(starts, rank, K, n)
+    res["host_ms"] = 1e3 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    live = int(torch.clamp(starts[1:].long() - starts[:-1].long(), max=K).sum())
+    res["bound_ms"] = 1e3 * 4 * (live + T * K + T + 1) / 3.35e12
+    res["live"] = live
+    return res
+
+
+def windows_in_frame(render_frame) -> list:
+    """Kernel 11's device time (us) per launch inside a dense frame, where
+    the binning's windows are built: ``render_frame()`` runs under
+    torch.profiler with ``binning._windows`` replaced, for this measurement
+    only, by the kernel (the gather's int64 inputs cast to int32), so its
+    output is allocated and written where the gather's would be; whether it
+    then reads as the L2-resident or the cycled time of ``windows_times``
+    says which regime the frame's windows see."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from exavatar_release_tpu_torch.ops.rasterizer import binning as bnm
+    from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
+
+    def kernel_windows(rank_sorted, starts, counts, n, max_per_tile):
+        return kn.tile_windows(starts.int(), rank_sorted.int(), max_per_tile, n)
+
+    plain = bnm._windows
+    torch.cuda.synchronize()
+    try:
+        bnm._windows = kernel_windows
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            render_frame()
+            torch.cuda.synchronize()
+    finally:
+        bnm._windows = plain
+    return [e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "tile_windows_kernel" in e.name]
+
+
+def animate_frames(cs, reps: int = 2):
+    """A call that renders the animate frame's poses densely ``reps`` times,
+    as ``chip_smoke.phase_animate`` does (ROOT's ``build_avatar``, 1920x1080,
+    focal 1200, K = 16,384: the binning shape), after one warm-up call."""
+    import torch
+
+    from exavatar_release_tpu_torch.apps.animate import render_motion
+    from exavatar_release_tpu_torch.core.camera import Camera
+    from exavatar_release_tpu_torch.ops.rasterizer import api
+
+    prior, cfg, human, buffers, id_info, poses = cs.build_avatar("cuda")
+    H, W, f = 1080, 1920, 1200.0
+    cam = Camera(torch.eye(3, device="cuda"), torch.zeros(3, device="cuda"),
+                 torch.tensor([f, f], device="cuda"), torch.tensor([W / 2.0, H / 2.0], device="cuda"))
+    dense = api.RasterizeSettings(max_per_tile=WINDOW_SHAPES["binning"][1])
+
+    def run():
+        for _ in range(reps):
+            render_motion(human, buffers, prior, id_info, poses, [cam] * len(poses), cfg, dense,
+                          (H, W))
+
+    run()
+    return run
 
 
 def main() -> int:
@@ -126,8 +297,15 @@ def main() -> int:
     for name, fn in fns.items():
         cs.cuda_ms(fn, 5)
         ms[name] = [cs.cuda_ms(fn, 30) for _ in range(3)]
+    windows = {}
+    for shape, (wT, wK, Pm, n) in WINDOW_SHAPES.items():
+        starts, rank = window_inputs(wT, Pm, n, seed=0)
+        same = torch.equal(kn.tile_windows(starts, rank, wK, n),
+                           kn.tile_windows_plain(starts, rank, wK, n))
+        windows[shape] = {"equal": same, **windows_times(kn, starts, rank, wK, n)}
+    windows["binning"]["in_frame_ms"] = [1e-3 * u for u in windows_in_frame(animate_frames(cs))]
     print(cs.card_line())
-    print(json.dumps({"root": root, "ms": ms}))
+    print(json.dumps({"root": root, "ms": ms, "tile_windows": windows}))
     return 0
 
 

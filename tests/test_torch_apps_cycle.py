@@ -12,7 +12,8 @@ capacity 512, frames of 40 x 32), on a synthetic subject directory:
   ``.npz`` that both packages load;
 * the port's ``apps.train.main`` takes 2 steps with ``--device cpu`` and the
   snapshot it writes loads in JAX's ``load_checkpoint``, leaf for leaf;
-* the flags that wait for later queues are refused.
+* the flags that wait for ``parallel/`` are refused; ``--profile_dir`` and
+  ``--human_model_path`` are taken.
 """
 import os
 import os.path as osp
@@ -181,7 +182,25 @@ def test_train_snapshot_loads_in_jax(cycle):
 
 @pytest.mark.parametrize("flag", [["--mesh", "data=2"], ["--gaussian_shard"],
                                   ["--profile_dir", "p"], ["--human_model_path", "assets"]])
-def test_unported_flags_are_refused(cycle, flag):
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue"):
-        train.main(["--subject_root", cycle["root"], "--out_dir", cycle["out"],
-                    "--allow_random_lpips"] + ARGS + flag)
+def test_unported_flags_are_refused(cycle, flag, tmp_path):
+    """``--mesh`` and ``--gaussian_shard`` wait for ``parallel/`` and are
+    refused. ``--profile_dir`` and ``--human_model_path`` are ported: the
+    first is taken (a one-step run, which ends before the traced
+    iterations), and the second reads the released files from its directory,
+    so a directory without them fails in the FLAME loader, as the JAX CLI's
+    ``face_mesh_for`` does."""
+    args = ["--subject_root", cycle["root"], "--out_dir", str(tmp_path),
+            "--allow_random_lpips"] + ARGS
+    if flag[0] == "--profile_dir":
+        res = train.main(args + ["--epochs", "1", "--repeat", "1", "--max_itrs", "1",
+                                 "--profile_dir", str(tmp_path / flag[1])])
+        assert len(res.history) == 1
+    elif flag[0] == "--human_model_path":
+        missing = str(tmp_path / flag[1])
+        with pytest.raises(FileNotFoundError):
+            j_common.face_mesh_for(missing, None)
+        with pytest.raises(FileNotFoundError):
+            train.main(args + [flag[0], missing])
+    else:
+        with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 5"):
+            train.main(args + flag)

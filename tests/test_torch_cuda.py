@@ -765,3 +765,33 @@ def test_tile_windows_equals_gather(dev):
     assert (got[7] == n).all()
     with pytest.raises(TypeError):
         kn.tile_windows(st.long(), rank, K, n)
+    # a 16-byte vector across rows (K = 1, 7, 1023), empty first, middle and
+    # last tiles, counts above K, rank exactly starts[T] long
+    for name, st, rank, K, n in chip_smoke.window_edge_cases(dev):
+        got = kn.tile_windows(st, rank, K, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kn.tile_windows_plain(st, rank, K, n)), name
+        if int(st[1]) == 0:  # an empty first tile
+            assert (got[0] == n).all(), name
+    assert kn.tile_windows(st[:1], rank, 4, 1).shape == (0, 4)
+    assert kn.tile_windows(st, rank, 0, 1).shape == (st.shape[0] - 1, 0)
+
+
+def test_tile_windows_past_2_31_entries(dev):
+    """T K > 2^31 takes 64-bit offsets: the last rows against the plain
+    version on those rows, with rows a multiple of 16 bytes long and not
+    (K = 2^14 + 3: vectors cross rows, T K % 4 != 0)."""
+    T, n = (1 << 17) + 1, 7
+    for K in (1 << 14, (1 << 14) + 3):
+        counts = torch.full((T,), 5, dtype=torch.int64, device=dev)
+        counts[-1], counts[-2] = K + 3, 0
+        starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).int()
+        rank = torch.arange(int(starts[-1]), dtype=torch.int32, device=dev) % 1000
+        got = kn.tile_windows(starts, rank, K, n)
+        torch.cuda.synchronize()
+        assert T * K > 1 << 31
+        last = starts[-9:] - starts[-9]
+        want = kn.tile_windows_plain(last, rank[int(starts[-9]):], K, n)
+        assert torch.equal(got[-8:], want), K
+        assert torch.equal(got[:4, :6], kn.tile_windows_plain(starts[:5], rank, 6, n)), K
+        del got
