@@ -65,7 +65,12 @@ the JAX package) and fails with a non-zero exit when any phase fails:
    subject directory, the train CLI with ``--profile_dir`` past iteration 40
    (its trace must name the compositing kernels), and the four CLIs with
    ``--human_model_path`` on a directory in the released files' layout
-   written from the synthetic arrays.
+   written from the synthetic arrays;
+10. runs the fitting half (``phase_fit``): ``apps.fit.main`` at its defaults
+   (64 frames of 1920x1080, three epochs, cut to 260 / 40 / 40 iterations) and
+   ``apps.unwrap.main`` on a fitting subject written from a posed body of that
+   layout, then one ``fit_step`` and ``unwrap_sequence`` on the card against
+   the CPU; no compositing kernel runs there, as in JAX.
 
 Weights are random, drawn from seeded ``torch.Generator``s and then brought
 into a trained avatar's range (Gaussian scales of ~6 mm, offsets of ~mm),
@@ -2087,14 +2092,17 @@ def write_human_model_dir(root: str, rings: int = 80, segs: int = 130, num_shape
     ``smplx/MANO_SMPLX_vertex_ids.pkl``, and under ``flame/`` a FLAME model on
     the head vertices (``generic_model.pkl`` of plain arrays, its faces the
     body's faces inside the head, a 5-joint skinning), the landmark
-    embeddings, ``FLAME_texture.npz`` and ``2019/generic_model.pkl``. The real
-    lip vertices (``prior.REAL_LIP_VERTEX_IDX``, up to 8977) need V > 8977:
-    the default body has 10,272 vertices. Returns the arrays written, by
-    file."""
+    embeddings, ``FLAME_texture.npz`` and ``2019/generic_model.pkl``; and
+    ``smplx/smplx_flip_correspondences.npz``, the mirror correspondence the
+    fitting reads (``fitting.losses.synthetic_flip_correspondence``, row
+    chunks). The real lip vertices (``prior.REAL_LIP_VERTEX_IDX``, up to 8977)
+    need V > 8977: the default body has 10,272 vertices. Returns the arrays
+    written, by file."""
     import pickle
 
     import numpy as np
 
+    from exavatar_release_tpu_torch.fitting.losses import synthetic_flip_correspondence
     from exavatar_release_tpu_torch.models.smplx.assets_io import _synthetic_arrays
     from exavatar_release_tpu_torch.models.smplx.structs import SMPLX_JOINT_NAMES
 
@@ -2153,6 +2161,9 @@ def write_human_model_dir(root: str, rings: int = 80, segs: int = 130, num_shape
     for d in ("smplx", "flame/2019"):
         os.makedirs(os.path.join(root, d), exist_ok=True)
     np.savez(os.path.join(root, "smplx", "SMPLX_MALE.npz"), **smplx)
+    closest_faces, bc = synthetic_flip_correspondence(a["v_template"], a["faces"])
+    flip = {"closest_faces": closest_faces, "bc": bc}
+    np.savez(os.path.join(root, "smplx", "smplx_flip_correspondences.npz"), **flip)
     np.save(os.path.join(root, "smplx", "SMPL-X__FLAME_vertex_ids.npy"), face_ids)
     hands = {"left_hand": lhand.astype(np.int64), "right_hand": rhand.astype(np.int64)}
     pickles = {"smplx/MANO_SMPLX_vertex_ids.pkl": hands, "flame/generic_model.pkl": flame,
@@ -2167,7 +2178,7 @@ def write_human_model_dir(root: str, rings: int = 80, segs: int = 130, num_shape
             allow_pickle=True)
     np.savez(os.path.join(root, "flame", "FLAME_texture.npz"), **texture)
     return {"smplx": smplx, "flame": flame, "face_ids": face_ids, "hands": hands,
-            "static": static, "dynamic": dynamic, "texture": texture}
+            "static": static, "dynamic": dynamic, "texture": texture, "flip": flip}
 
 
 def phase_apps(device, img=(1080, 1920), n_frames=3, n_points=5000, triplane=(32, 128),
@@ -2325,6 +2336,385 @@ def phase_apps(device, img=(1080, 1920), n_frames=3, n_points=5000, triplane=(32
     return res
 
 
+def write_fit_subject(root: str, human_model_path: str, n_frames: int = 64, img=(1080, 1920),
+                      focal: float = 1200.0, seed: int = 0) -> None:
+    """A seeded subject for the fitting CLIs in the reference layout: per
+    frame a posed body of ``human_model_path``'s SMPL-X (the root turned to
+    face the camera, body, hands, jaw and 50 expression coefficients drawn,
+    2.5 m in front of the camera), its 135 keypoints projected at ``focal``
+    with 2 px of noise and confidences in [0.6, 1] (``keypoints_whole_body/``),
+    the poses perturbed by 0.05 rad as the detectors' initial estimates
+    (``smplx_init/``, and ``flame_init/`` with the head's translation, the
+    expression perturbed, ``shape_param.json``), an RGB frame
+    (``images/``, PNG) and its camera (``cam_params/``)."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from exavatar_release_tpu_torch.fitting.keypoints import SMPLX_KPT_NAMES, full_keypoints
+    from exavatar_release_tpu_torch.models.smplx import SMPLXParams, load_smplx_assets, \
+        smplx_forward
+    from exavatar_release_tpu_torch.utils.png import write_png
+
+    H, W = img
+    rng = np.random.default_rng(seed)
+    a = load_smplx_assets(human_model_path, "male", device="cpu")
+    for d in ("images", "cam_params", "keypoints_whole_body", "smplx_init", "flame_init"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    head = SMPLX_KPT_NAMES.index("Head")
+    noisy = lambda x, s: (np.asarray(x) + rng.normal(0, s, np.shape(x))).tolist()
+    for i in range(n_frames):
+        pose = {"root_pose": np.asarray([math.pi, 0, 0]) + rng.normal(0, 0.05, 3),
+                "body_pose": rng.normal(0, 0.1, (21, 3)), "jaw_pose": rng.normal(0, 0.05, 3),
+                "leye_pose": np.zeros(3), "reye_pose": np.zeros(3),
+                "lhand_pose": rng.normal(0, 0.1, (15, 3)),
+                "rhand_pose": rng.normal(0, 0.1, (15, 3)),
+                "expr": rng.normal(0, 0.3, a.num_expr),
+                "trans": np.asarray([0.0, 0.1, 2.5]) + rng.normal(0, 0.02, 3)}
+        t = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in pose.items()}
+        with torch.no_grad():
+            kpt = full_keypoints(smplx_forward(a, SMPLXParams(betas=torch.zeros(a.num_shape), **t)),
+                                 a).numpy()
+        xy = kpt[:, :2] / kpt[:, 2:3] * focal + np.asarray([W / 2, H / 2])
+        kpts = np.concatenate([xy + rng.normal(0, 2.0, xy.shape),
+                               rng.uniform(0.6, 1.0, (135, 1))], 1)
+        files = {
+            "keypoints_whole_body": kpts.tolist(),
+            "smplx_init": {k: noisy(pose[k], 0.05) for k in ("root_pose", "body_pose",
+                                                            "lhand_pose", "rhand_pose")}
+            | {"trans": noisy(pose["trans"], 0.02)},
+            "flame_init": {"root_pose": noisy(np.zeros(3), 0.05),
+                           "neck_pose": noisy(np.zeros(3), 0.05),
+                           "jaw_pose": noisy(pose["jaw_pose"], 0.05),
+                           "leye_pose": [0, 0, 0], "reye_pose": [0, 0, 0],
+                           "expr": noisy(pose["expr"], 0.1), "trans": noisy(kpt[head], 0.01)},
+            "cam_params": {"R": np.eye(3).tolist(), "t": [0, 0, 0], "focal": [focal, focal],
+                           "princpt": [W / 2, H / 2]},
+        }
+        for d, payload in files.items():
+            with open(os.path.join(root, d, f"{i}.json"), "w") as f:
+                json.dump(payload, f)
+        coarse = rng.integers(0, 256, (H // 8 + 1, W // 8 + 1, 3), np.uint8)
+        write_png(os.path.join(root, "images", f"{i}.png"),
+                  np.kron(coarse, np.ones((8, 8, 1), np.uint8))[:H, :W], level=1)
+    with open(os.path.join(root, "flame_init", "shape_param.json"), "w") as f:
+        json.dump(rng.normal(0, 0.1, 100).tolist(), f)
+
+
+def device_launches(fn) -> dict:
+    """Device work of one call of ``fn`` under torch.profiler: the kernels
+    and copies launched, their summed device time, the wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.device_time for e in dev) / 1e3
+    return {"launches": len(dev), "device_ms": device_ms, "wall_ms": wall_ms}
+
+
+def unwrap_margin(uv, mesh, faces, focal, princpt, zbuf, z_tol=0.01):
+    """(Hu, Wu), float64: how far each UV pixel's unwrap decision is from its
+    threshold in one frame (``fitting.unwrap.unwrap_frame``): its projected
+    point from a pixel edge (the z-buffer lookup) and its depth from the
+    z-buffer's plus ``z_tol`` (the visibility test)."""
+    import numpy as np
+
+    sel = np.maximum(uv.face_idx.cpu().numpy(), 0)
+    tri = mesh.cpu().double().numpy()[faces.cpu().numpy()[sel]]
+    pts = np.einsum("hwk,hwkc->hwc", uv.bary.cpu().double().numpy(), tri)
+    z = np.maximum(pts[..., 2], 1e-6)
+    f, c = focal.cpu().double().numpy(), princpt.cpu().double().numpy()
+    px, py = pts[..., 0] / z * f[0] + c[0], pts[..., 1] / z * f[1] + c[1]
+    H, W = zbuf.shape
+    zb = zbuf.cpu().double().numpy()[np.clip(py.astype(np.int64), 0, H - 1),
+                                      np.clip(px.astype(np.int64), 0, W - 1)]
+    frac = lambda x: np.abs(x - np.round(x))
+    return np.minimum.reduce([frac(px), frac(py), np.abs(z - (zb + z_tol))])
+
+
+FIT_ITRS = (260, 40, 40)  # iterations per epoch: the CLI's 500 / 250 / 250, cut
+
+
+def phase_fit(device, n_frames=64, img=(1080, 1920), focal=1200.0, itrs=FIT_ITRS, cmp_frames=4,
+              unwrap_args=()) -> dict:
+    """The fitting half as a user runs it: ``write_human_model_dir``'s released
+    layout (10,272 vertices, with the flip correspondences) and a
+    ``write_fit_subject`` of ``n_frames`` frames at ``img``; ``apps.fit.main``
+    at its defaults (batch 64, three epochs; ``itrs`` iterations per epoch,
+    ``FIT_ITRS`` against the CLI's 500 / 250 / 250 to keep the phase near two
+    minutes, with the root-only boundary at 100, the hand one at 250 and the
+    frozen last epoch; None runs the CLI's schedule), its check renders on
+    where cv2 is, else with ``--no_vis`` after checking that the CLI refuses
+    without it; then ``apps.unwrap.main`` at its defaults (``unwrap_args`` for
+    a rehearsal). Logs the fit step's median host ms past warm-up, the peak
+    memory, the total and ``smplx_kpt_proj`` losses at the first and last
+    iteration (both must fall), the unwrap's seconds and coverage. Then one
+    ``fit_step`` on ``cmp_frames`` frames at full width on the card, its
+    device launches and time (torch.profiler), and the same step on the CPU
+    (losses rtol 1e-4; gradients 1e-3 of each leaf's largest plus 2^-14, the
+    float32 rounding of the 1e5-weighted Laplacian term; leaves 1e-3 of their
+    largest where the gradient is above 2^-12, Adam's first step being +-lr
+    whatever the gradient's size), and ``unwrap_sequence`` on two frames at an
+    eighth of the resolution against the CPU's (the mask equal but on ties:
+    a flipped atlas face or a decision within 1e-4 of its threshold; the
+    texture within 8 ulp of the frame's width where both masks are set).
+    Counters at 0 before the fit CLI and read after the unwrap."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from exavatar_release_tpu_torch.apps import fit, unwrap
+    from exavatar_release_tpu_torch.apps.common import build_fit_statics_for
+    from exavatar_release_tpu_torch.fitting import config as fit_config
+    from exavatar_release_tpu_torch.fitting import fit as F
+    from exavatar_release_tpu_torch.fitting.model import FitFrameData, fitting_forward
+    from exavatar_release_tpu_torch.fitting.params import init_fitting_params
+    from exavatar_release_tpu_torch.fitting.unwrap import build_uv_maps, unwrap_sequence
+    from exavatar_release_tpu_torch.ops.mesh_raster import rasterize_mesh
+
+    res = {"ok": True}
+
+    def check(name, cond, detail):
+        res["ok"] &= bool(cond)
+        log(f"[fit] {name}: {detail} {'ok' if cond else 'FAIL'}")
+
+    cuda = device == "cuda"
+    work = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    hm, root = os.path.join(work, "human_model"), os.path.join(work, "subject")
+    t0 = time.perf_counter()
+    write_human_model_dir(hm)
+    write_fit_subject(root, hm, n_frames, img, focal)
+    H, W = img
+    log(f"[fit] released layout (10,272 vertices, flip correspondences) and a {n_frames}-frame "
+        f"{W}x{H} fitting subject written in {time.perf_counter() - t0:.1f} s")
+    args = ["--subject_root", root, "--human_model_path", hm, "--device", device]
+    schedule = fit_config.FittingConfig.itr_opt_num
+    if itrs is not None:
+        fit_config.FittingConfig.itr_opt_num = lambda self, epoch: itrs[epoch]
+    cfg = fit_config.FittingConfig()
+    sched = [cfg.itr_opt_num(e) for e in range(cfg.end_epoch)]
+    try:
+        import cv2  # noqa: F401  (the CLI's check renders)
+        vis = []
+    except ImportError:
+        vis = ["--no_vis"]
+        try:
+            fit.main(args)
+            refused = ""
+        except SystemExit as e:
+            refused = str(e)
+        check("fit CLI without cv2", "cv2" in refused and not os.path.exists(
+            os.path.join(root, "smplx_optimized")), f"refuses: {refused!r}")
+    reset_launches()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        hist = fit.main(args + vis)
+    finally:
+        fit_config.FittingConfig.itr_opt_num = schedule
+    if cuda:
+        torch.cuda.synchronize()
+    res["fit_s"] = time.perf_counter() - t0
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    # past warm-up: the first 5 steps of the run and the logged ones (a read each) left out
+    steady = [h["step_s"] for k, h in enumerate(hist) if k >= 5 and h["itr"] % 50]
+    res["step_ms_median"] = 1e3 * float(np.median(steady))
+    res["steps"] = len(hist)
+    first, last = hist[0], hist[-1]
+    log(f"[fit] fit CLI: {len(hist)} steps (schedule {sched}, batch "
+        f"{min(64, n_frames)}) in {res['fit_s']:.2f} s; step host ms median "
+        f"{res['step_ms_median']:.3f} (p10 {1e3 * np.percentile(steady, 10):.3f}, p90 "
+        f"{1e3 * np.percentile(steady, 90):.3f}); peak memory {res['peak_gib']} GiB")
+    for k in ("total", "smplx_kpt_proj"):
+        res[k] = (first[k], last[k])
+        check(f"{k} falls", np.isfinite([first[k], last[k]]).all() and last[k] < first[k],
+              f"{first[k]:.6f} at the first iteration, {last[k]:.6f} at the last")
+    for e in range(cfg.end_epoch):  # each epoch's first and last totals
+        ep = [h["total"] for h in hist if h["epoch"] == e]
+        log(f"[fit]   epoch {e}: total {ep[0]:.6f} -> {ep[-1]:.6f} over {len(ep)} iterations")
+    out = os.path.join(root, "smplx_optimized")
+    check("fit outputs", all(os.path.exists(os.path.join(out, "smplx_params", f"{i}.json"))
+                             for i in range(n_frames))
+          and all(os.path.exists(os.path.join(out, n)) for n in (
+              "shape_param.json", "face_offset.json", "joint_offset.json",
+              "locator_offset.json")), f"{n_frames} parameter files and the identity tables")
+    if not vis:
+        made = [os.path.join(out, "meshes", f"{i}_{m}.ply") for i in range(n_frames)
+                for m in ("smplx", "flame")]
+        made += [os.path.join(out, "renders", f"{i}_smplx.jpg") for i in range(n_frames)]
+        made += [os.path.join(root, "smplx_optimized.mp4")]
+        check("fit check renders (cv2 here)", all(os.path.exists(p) for p in made),
+              f"{2 * n_frames} meshes, {n_frames} overlays and the check video")
+
+    t0 = time.perf_counter()
+    coverage = unwrap.main(args + list(unwrap_args))
+    res["unwrap_s"], res["coverage"] = time.perf_counter() - t0, coverage
+    check("unwrap CLI", 0 < coverage <= 1 and all(os.path.exists(os.path.join(out, n)) for n in (
+        "face_texture.png", "face_texture_mask.png")),
+        f"{res['unwrap_s']:.2f} s, coverage {coverage:.4f}")
+    if cuda:
+        torch.cuda.synchronize()
+    res["launches"] = read_launches()
+    check("no compositing kernel launched", not any(res["launches"].values()),
+          f"{res['launches']} (none in JAX either)")
+
+    # one step at full width from one state, on the card and on the CPU
+    t_cmp = time.perf_counter()
+    rng = np.random.default_rng(1)
+    devs = {"cpu": "cpu", "card": device}
+    statics = {r: build_fit_statics_for(hm, d) for r, d in devs.items()}
+    st = statics["cpu"]
+    E, Sf = st.flame_assets.num_expr, st.flame_assets.num_shape
+    f32 = lambda x: np.asarray(x, np.float32)
+    pose = lambda n: rng.normal(0, 0.1, n)
+    smplx_init = [{"root_pose": np.asarray([math.pi, 0, 0]) + pose(3), "body_pose": pose((21, 3)),
+                   "lhand_pose": pose((15, 3)), "rhand_pose": pose((15, 3)),
+                   "trans": [0.0, 0.1, 2.5]} for _ in range(cmp_frames)]
+    flame_init = [{"root_pose": pose(3), "neck_pose": pose(3), "jaw_pose": pose(3),
+                   "leye_pose": np.zeros(3), "reye_pose": np.zeros(3), "expr": pose(E),
+                   "trans": [0.0, 0.6, 2.5]} for _ in range(cmp_frames)]
+    fr = dict(kpt_img=f32(rng.uniform(0, 8, (cmp_frames, 135, 2))),
+              kpt_valid=f32(rng.uniform(size=(cmp_frames, 135, 1)) > 0.2),
+              focal_proj=f32(np.full((cmp_frames, 2), 4.0)),
+              princpt_proj=f32(np.full((cmp_frames, 2), 4.0)),
+              flame_valid=np.ones(cmp_frames, bool),
+              init_smplx_pose=f32(rng.normal(0, 0.1, (cmp_frames, 55, 3))),
+              init_flame_pose=f32(rng.normal(0, 0.1, (cmp_frames, 4, 3))),
+              init_flame_shape=f32(rng.normal(0, 0.5, (cmp_frames, Sf))),
+              init_flame_expr=f32(rng.normal(0, 0.5, (cmp_frames, E))))
+    # the layout's FLAME is the SMPL-X head itself: at zero shapes and offsets
+    # the two zero-pose meshes coincide and every L1 coupling sits at its kink,
+    # where the last bit picks the gradient's sign; seeded identity moves off it
+    ident = {k: f32(rng.normal(0, s, n)) for k, s, n in (
+        ("smplx_shape", 0.3, st.smplx_assets.num_shape), ("flame_shape", 0.3, Sf),
+        ("face_offset", 0.002, (st.flame_assets.num_vertices, 3)),
+        ("joint_offset", 0.005, (st.smplx_assets.num_joints, 3)),
+        ("locator_offset", 0.005, (st.smplx_assets.num_joints, 3)))}
+    opt = F.make_fit_optimizer()
+    runs = {}
+    for r, d in devs.items():
+        def fresh():
+            p = init_fitting_params(smplx_init, flame_init, np.zeros(Sf),
+                                    st.smplx_assets.num_shape, st.flame_assets.num_vertices,
+                                    st.smplx_assets.num_joints, d)
+            for k, v in ident.items():
+                setattr(p, k, torch.tensor(v, device=d))  # a copy: the step moves it
+            return F.init_fit_state(p, opt)
+        frames = FitFrameData(**{k: torch.from_numpy(v).to(d) for k, v in fr.items()})
+        rows = torch.arange(cmp_frames, device=d)
+        step = lambda state: F.fit_step(state, statics[r], frames, rows, opt, 1e-2, False, True,
+                                        False, False)
+        if r == "card" and cuda:  # launches and device time of a step, warm
+            state = fresh()
+            for _ in range(3):
+                step(state)
+            prof = device_launches(lambda: step(state))
+            res["launches_per_step"] = prof["launches"]
+            log(f"[fit] fit_step at full width, {cmp_frames} frames: {prof['launches']} device "
+                f"launches, device busy {prof['device_ms']:.3f} ms of {prof['wall_ms']:.3f} ms "
+                f"wall ({100 * prof['device_ms'] / prof['wall_ms']:.1f}%)")
+        state = fresh()
+        losses = fitting_forward(state.params, statics[r], frames, rows, False, False)
+        grads = torch.autograd.grad(sum(losses.values()), list(state.params.named().values()))
+        _, l1 = step(state)
+        runs[r] = ({k: float(v) for k, v in l1.items()}, [g.cpu().numpy() for g in grads],
+                   {k: v.detach().cpu().numpy() for k, v in state.params.named().items()})
+    (lc, gc, pc), (lg, gg, pg) = runs["cpu"], runs["card"]
+    loss_ok = all(abs(lg[k] - lc[k]) <= 1e-4 * abs(lc[k]) + 1e-6 for k in lc)
+    loss_err = max(abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc)
+    check("fit_step card vs CPU, losses", loss_ok,
+          f"worst relative {loss_err:.3e} over {len(lc)} terms (rtol 1e-4, atol 1e-6)")
+    worst_g, worst_p = [], []
+    for (k, c), g, want in zip(pc.items(), gg, gc):
+        scale = float(np.abs(want).max())
+        worst_g.append((float(np.abs(g - want).max()) / max(scale, 1e-30), k,
+                        bool((np.abs(g - want) <= 1e-3 * scale + 2.0 ** -14).all())))
+        d = np.abs(pg[k] - c)[np.abs(want) > 2.0 ** -12]
+        worst_p.append((float(d.max()) / float(np.abs(c).max()) if d.size else 0.0, k,
+                        bool((d <= 1e-3 * np.abs(c).max()).all())))
+    check("fit_step card vs CPU, gradients", all(ok for *_, ok in worst_g),
+          "worst leaves " + ", ".join(f"{k} {e:.2e}" for e, k, _ in sorted(worst_g)[-3:]))
+    check("fit_step card vs CPU, leaves", all(ok for *_, ok in worst_p),
+          "worst leaves " + ", ".join(f"{k} {e:.2e}" for e, k, _ in sorted(worst_p)[-3:]))
+
+    # unwrap_sequence on two frames: the face of the detectors' initial
+    # estimate (the fit's translations live in its normalized space), the
+    # frames and cameras at an eighth of the resolution and a 256x256 atlas
+    # (the CPU's rasterizer)
+    import json
+
+    from exavatar_release_tpu_torch.apps.common import build_prior_for, face_mesh_for
+    from exavatar_release_tpu_torch.data.subject import read_rgb
+    from exavatar_release_tpu_torch.models.smplx import SMPLXParams, smplx_forward
+
+    prior = build_prior_for(hm, "male", "cpu")
+    faces, vertex_uv, face_uv = face_mesh_for(hm, prior)
+    a, fv = prior.assets, prior.face_vertex_idx.long()
+    ins = {"meshes": [], "imgs": [], "focals": [], "princpts": []}
+    for fid in (0, 1):
+        with open(os.path.join(root, "smplx_init", f"{fid}.json")) as f:
+            sp = {k: torch.tensor(v, dtype=torch.float32) for k, v in json.load(f).items()}
+        with open(os.path.join(root, "cam_params", f"{fid}.json")) as f:
+            cp = json.load(f)
+        z = lambda *n: torch.zeros(n)
+        with torch.no_grad():
+            ins["meshes"].append(smplx_forward(a, SMPLXParams(
+                betas=z(a.num_shape), expr=z(a.num_expr), jaw_pose=z(3), leye_pose=z(3),
+                reye_pose=z(3), **sp), with_landmarks=False).vertices[fv])
+        ins["imgs"].append(torch.from_numpy(
+            read_rgb(os.path.join(root, "images", f"{fid}.png"))[:, ::8, ::8].copy()))
+        ins["focals"].append(torch.tensor(cp["focal"]) / 8)
+        ins["princpts"].append(torch.tensor(cp["princpt"]) / 8)
+    ins = {k: torch.stack(v) for k, v in ins.items()}
+    H, W = ins["imgs"].shape[2:]
+    faces_t = torch.from_numpy(np.asarray(faces, np.int64))
+    uv_size = int(dict(zip(unwrap_args[::2], unwrap_args[1::2])).get("--uv_size", 256))
+    out = {}
+    for r, d in devs.items():
+        uv = build_uv_maps(torch.from_numpy(vertex_uv).to(d),
+                           torch.from_numpy(np.asarray(face_uv)).to(d), (uv_size, uv_size))
+        tex, mask = unwrap_sequence(uv, ins["meshes"].to(d), faces_t.to(d), ins["imgs"].to(d),
+                                    ins["focals"].to(d), ins["princpts"].to(d))
+        out[r] = (uv, uv.face_idx.cpu().numpy(), uv.bary.cpu().numpy(), tex.cpu().numpy(),
+                  mask.cpu().numpy()[0] > 0)
+    (uv_cpu, fc, bc_, tc, mc), (_, fg, bg_, tg, mg) = out["cpu"], out["card"]
+    # a flipped atlas face: covered on both sides (the atlas is drawn at one
+    # depth) or on an edge; a flipped mask pixel: a flipped face or a decision
+    # within 1e-4 of its threshold in one of the frames
+    uv_tie = ((fc >= 0) & (fg >= 0)) | (bc_.min(-1) < 1e-4) | (bg_.min(-1) < 1e-4)
+    margin = np.minimum.reduce([
+        unwrap_margin(uv_cpu, m, faces_t, fo, pp, rasterize_mesh(m, faces_t, fo, pp, (H, W)).zbuf)
+        for m, fo, pp in zip(ins["meshes"], ins["focals"], ins["princpts"])])
+    tie = (fc != fg) | (margin < 1e-4)
+    same = mc & mg & (fc == fg)
+    tex_err = float(np.abs(tg - tc)[:, same].max()) if same.any() else 0.0
+    # the sample points' coordinates carry the float32 rounding of values up
+    # to W (the card contracts into FMAs where the CPU does not), and the
+    # frame's 8x8 blocks step by up to 1 between neighbouring pixels
+    tex_tol = 8 * float(np.spacing(np.float32(W)))
+    check("unwrap_sequence card vs CPU",
+          ((fc == fg) | uv_tie).all() and (mc == mg)[~tie].all() and tex_err <= tex_tol
+          and (mc & ~tie).mean() > 0.01,
+          f"atlas faces differing {int((fc != fg).sum())} (all ties), mask pixels differing "
+          f"{int((mc != mg).sum())} of {int(mc.sum())} set (all ties), texture max abs diff "
+          f"{tex_err:.3e} where both are set on one face (limit {tex_tol:.3e}: 8 ulp of W = "
+          f"{W}); card against CPU in {time.perf_counter() - t_cmp:.1f} s")
+    shutil.rmtree(work)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2352,7 +2742,7 @@ def main() -> int:
             f"{ld} B loaded, {frame} B stack frame")
 
     # ``--phases a,b`` runs a part (random, goldens, animate, frame, train,
-    # probes, convergence, apps) and
+    # probes, convergence, apps, fit) and
     # prints no result line: the contract needs every phase
     only = None
     if "--phases" in sys.argv[1:]:
@@ -2383,6 +2773,8 @@ def main() -> int:
     ok &= cnv is None or cnv["ok"]
     app = timed("apps", lambda: phase_apps("cuda")) if want("apps") else None
     ok &= app is None or app["ok"]
+    fit = timed("fit", lambda: phase_fit("cuda")) if want("fit") else None
+    ok &= fit is None or fit["ok"]
     log(f"[time] the whole run: {time.perf_counter() - T_START:.1f} s (phases {phase_s})")
     if only is not None:
         log(f"chip_smoke: phases {sorted(only)} {'passed' if ok else 'FAILED'}; a partial run "
@@ -2407,7 +2799,7 @@ def main() -> int:
                    **{f"frame_{k}": v[name] for k, v in frm["launches"].items()},
                    **{k: v[name] for k, v in trn["launches"].items()},
                    "probes": prb["launches"][name], "convergence": cnv["launches"][name],
-                   "apps": app["launches"][name]}
+                   "apps": app["launches"][name], "fit": fit["launches"][name]}
         entry = {
             "name": name, "route": "cuda", "source": KERNEL_SOURCE[name],
             "replaces": REPLACES[name], "launches": sum(by_path.values()),

@@ -30,6 +30,7 @@ from ..models.smplx import (
     load_flame_uv,
     load_prior_tables,
     load_smplx_assets,
+    synthetic_flame_assets,
     synthetic_smplx_assets,
 )
 from ..models.smplx.prior import REAL_LIP_VERTEX_IDX
@@ -97,6 +98,29 @@ def face_mesh_for(human_model_path: Optional[str], prior):
 
 # the synthetic body's size, the JAX package's default
 SYNTHETIC_BODY = {"rings": 16, "segs": 24}
+
+
+def build_fit_statics_for(human_model_path: Optional[str], device="cuda"):
+    """Fitting statics from the released SMPL-X/FLAME files and their
+    correspondence tables (``smplx/smplx_flip_correspondences.npz`` among
+    them) under a ``human_model_path``, else from the synthetic body
+    (``SYNTHETIC_BODY``) and a synthetic FLAME head with as many expression
+    coefficients (the expression space is shared by the two models)."""
+    from ..fitting.model import build_fit_statics
+
+    if human_model_path:
+        tables = load_prior_tables(human_model_path)
+        flip = np.load(osp.join(human_model_path, "smplx", "smplx_flip_correspondences.npz"))
+        return build_fit_statics(
+            load_smplx_assets(human_model_path, "male", device=device),
+            load_flame_assets(human_model_path, device=device), tables["face_vertex_idx"],
+            flip["closest_faces"], flip["bc"])
+    smplx_assets = synthetic_smplx_assets(**SYNTHETIC_BODY, device=device)
+    flame_assets, _ = synthetic_flame_assets(num_expr=smplx_assets.num_expr, device=device)
+    fv = build_prior(smplx_assets).face_vertex_idx.cpu().numpy()
+    Vf = flame_assets.num_vertices
+    fv = np.concatenate([fv, np.tile(fv[-1:], max(0, Vf - fv.size))])[:Vf]
+    return build_fit_statics(smplx_assets, flame_assets, fv)
 
 
 def build_prior_for(human_model_path: Optional[str], gender: str = "male", device="cuda"):

@@ -126,13 +126,20 @@ def symmetric_joint_pairs() -> Tuple[np.ndarray, np.ndarray]:
     return np.asarray(right, np.int32), np.asarray(left, np.int32)
 
 
+def abs_as_jax(x: torch.Tensor) -> torch.Tensor:
+    """|x| with ``jnp.abs``'s derivative at 0, which is +1 (``torch.abs``'s is
+    0): an L1 term at exactly zero, such as offsets that start at zero, then
+    moves Adam as it does in JAX."""
+    return torch.where(x >= 0, x, -x)
+
+
 def joint_offset_symmetric_reg(joint_offset: torch.Tensor, right_idx: torch.Tensor,
                                left_idx: torch.Tensor) -> torch.Tensor:
     """Mirror symmetry of joint offsets: x anti-symmetric, y/z symmetric."""
     r = joint_offset[right_idx.long()]
     l = joint_offset[left_idx.long()]
-    loss = (torch.abs(r[:, 0] + l[:, 0]) + torch.abs(r[:, 1] - l[:, 1])
-            + torch.abs(r[:, 2] - l[:, 2]))
+    loss = (abs_as_jax(r[:, 0] + l[:, 0]) + abs_as_jax(r[:, 1] - l[:, 1])
+            + abs_as_jax(r[:, 2] - l[:, 2]))
     return torch.mean(loss)
 
 

@@ -22,7 +22,7 @@ and the moments in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 import numpy as np
 import torch
@@ -139,28 +139,35 @@ class GroupAdam:
         """One step on every parameter, in place: mu, nu, the parameters, and
         the count. The whole tree moves in a few multi-tensor calls."""
         names = [k for k, _ in trainables.named_parameters()]
-        params = [p for _, p in trainables.named_parameters()]
-        g = [grads[k] for k in names]
-        mu = [state.mu[k] for k in names]
-        nu = [state.nu[k] for k in names]
-        n = state.count + 1
         lrs = self.learning_rates(state.count)
-        torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
-        torch._foreach_mul_(nu, self.b2)
-        torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
-        # update = (mu / c1) / (sqrt(nu / c2) + eps), bias corrections in float32
-        c1 = float(_F(1) - _F(self.b1) ** _F(n))
-        c2 = float(_F(1) - _F(self.b2) ** _F(n))
-        denom = torch._foreach_div(nu, c2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        step = torch._foreach_div(mu, c1)
-        torch._foreach_div_(step, denom)
-        torch._foreach_mul_(step, [-lrs[self.labels[k]] for k in names])
-        torch._foreach_add_(params, step)
-        state.count = n
+        adam_step_([p for _, p in trainables.named_parameters()], [grads[k] for k in names],
+                   [state.mu[k] for k in names], [state.nu[k] for k in names], state.count + 1,
+                   [lrs[self.labels[k]] for k in names], self.b1, self.b2, self.eps)
+        state.count += 1
         return state
+
+
+@torch.no_grad()
+def adam_step_(params: List[torch.Tensor], grads: List[torch.Tensor], mu: List[torch.Tensor],
+               nu: List[torch.Tensor], n: int, lrs: List[float], b1: float, b2: float,
+               eps: float) -> None:
+    """Adam's update number ``n`` (from 1) of ``params``, ``mu`` and ``nu``,
+    in place, with a learning rate per parameter: ``optax.scale_by_adam``'s
+    arithmetic, in a few multi-tensor calls."""
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+    # update = (mu / c1) / (sqrt(nu / c2) + eps), bias corrections in float32
+    c1 = float(_F(1) - _F(b1) ** _F(n))
+    c2 = float(_F(1) - _F(b2) ** _F(n))
+    denom = torch._foreach_div(nu, c2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    step = torch._foreach_div(mu, c1)
+    torch._foreach_div_(step, denom)
+    torch._foreach_mul_(step, [-lr for lr in lrs])
+    torch._foreach_add_(params, step)
 
 
 def make_optimizer(trainables: AvatarTrainables, cfg: AvatarConfig, cam_dist_radius: float,

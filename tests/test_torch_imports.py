@@ -77,6 +77,21 @@ def test_each_apps_module_imports_alone_without_jax_or_cv2():
         subprocess.run([sys.executable, "-c", code, m], cwd=REPO, check=True, timeout=120)
 
 
+# the fitting half and its two CLIs, which import cv2 only for the check renders
+FIT_MODULES = ("utils.mesh_io", "utils.vis", "fitting", "fitting.config", "fitting.kpt_convert",
+               "fitting.keypoints", "fitting.smooth", "fitting.params", "fitting.losses",
+               "fitting.model", "fitting.fit", "fitting.unwrap", "fitting.convert", "apps.fit",
+               "apps.unwrap")
+
+
+def test_module_list_covers_the_fitting_modules():
+    """The fitting half and its CLIs are among the modules that
+    test_import_leaves_jax_unloaded imports (no JAX, cv2 or triton loaded)."""
+    mods = _port_modules()
+    missing = [m for m in FIT_MODULES if m not in mods]
+    assert not missing, missing
+
+
 def test_each_train_module_imports_alone_without_jax():
     """Every new module in a clean process of its own: importing it first
     (before any other module of the port) must work and load no JAX."""

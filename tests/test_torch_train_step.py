@@ -66,13 +66,12 @@ def step(twin):
 
     tr = copy.deepcopy(twin.t_trainables)
     before = {k: p.detach().clone() for k, p in tr.named_parameters()}
-    _, _, grads, _ = tl.loss_and_grads(tr, twin.t_scene_aux, twin.t_bundle, twin.t_frame(0),
-                                       torch.from_numpy(bg), twin.t_cfg, False,
-                                       settings=twin.t_settings)
     opt = make_optimizer(tr, twin.t_cfg, RADIUS, TOT)
     state = tl.init_train_state(tr, twin.t_scene_aux, opt)._replace(itr=ITR0)
     new, losses = tl.train_step(state, twin.t_bundle, twin.t_frame(0), opt, twin.t_cfg, False,
                                 settings=twin.t_settings, bg=torch.from_numpy(bg))
+    # the step's gradients, from its first moment (mu = (1 - b1) g from zero)
+    grads = {k: m / (1.0 - opt.b1) for k, m in new.opt_state.mu.items()}
     want = convert.train_state_from_jax(
         [np.asarray(x) for x in jax.tree_util.tree_leaves(j_new)], twin.t_cfg, device="cpu")
     return dict(new=new, losses=losses, want=want, j_losses=j_losses, before=before,
