@@ -66,11 +66,19 @@ the JAX package) and fails with a non-zero exit when any phase fails:
    (its trace must name the compositing kernels), and the four CLIs with
    ``--human_model_path`` on a directory in the released files' layout
    written from the synthetic arrays;
-10. runs the fitting half (``phase_fit``): ``apps.fit.main`` at its defaults
-   (64 frames of 1920x1080, three epochs, cut to 260 / 40 / 40 iterations) and
-   ``apps.unwrap.main`` on a fitting subject written from a posed body of that
-   layout, then one ``fit_step`` and ``unwrap_sequence`` on the card against
-   the CPU; no compositing kernel runs there, as in JAX.
+10. runs the preprocessing and fitting half (``phase_fit``):
+   ``apps.preprocess.main`` from a ``video.mp4`` of 64 frames of 1920x1080 to
+   ``bkg_point_cloud.txt`` on a subject written from posed bodies of that
+   layout, with the keypoint, mask and depth networks injected (their files
+   are not in the repository): the frames extracted, the detectors' drivers,
+   ``apps.fit.main`` at its defaults (three epochs, cut to 260 / 40 / 40
+   iterations) with its check renders, ``apps.unwrap.main``, the smoothing
+   with its check video and the background cloud; checks every output
+   against what the detectors were given and the cloud against the seeded
+   background plane; then on one frame the depth alignment, the depth render
+   and the cloud, ``umeyama`` and ``fitting_init``, one ``fit_step`` and
+   ``unwrap_sequence`` on the card against the CPU; no compositing kernel
+   runs there, as in JAX.
 
 Weights are random, drawn from seeded ``torch.Generator``s and then brought
 into a trained avatar's range (Gaussian scales of ~6 mm, offsets of ~mm),
@@ -2337,18 +2345,23 @@ def phase_apps(device, img=(1080, 1920), n_frames=3, n_points=5000, triplane=(32
 
 
 def write_fit_subject(root: str, human_model_path: str, n_frames: int = 64, img=(1080, 1920),
-                      focal: float = 1200.0, seed: int = 0) -> None:
-    """A seeded subject for the fitting CLIs in the reference layout: per
-    frame a posed body of ``human_model_path``'s SMPL-X (the root turned to
-    face the camera, body, hands, jaw and 50 expression coefficients drawn,
-    2.5 m in front of the camera), its 135 keypoints projected at ``focal``
-    with 2 px of noise and confidences in [0.6, 1] (``keypoints_whole_body/``),
-    the poses perturbed by 0.05 rad as the detectors' initial estimates
+                      focal: float = 1200.0, seed: int = 0) -> dict:
+    """A seeded subject for the preprocessing and fitting CLIs in the
+    reference layout: per frame a posed body of ``human_model_path``'s SMPL-X
+    (the root turned to face the camera, body, hands, jaw and 50 expression
+    coefficients drawn, 2.5 m in front of the camera), its 135 keypoints
+    projected at ``focal`` with 2 px of noise and confidences in [0.6, 1]
+    (returned, for the injected keypoint detector to answer with), the poses
+    perturbed by 0.05 rad as the detectors' initial estimates
     (``smplx_init/``, and ``flame_init/`` with the head's translation, the
-    expression perturbed, ``shape_param.json``), an RGB frame
-    (``images/``, PNG) and its camera (``cam_params/``)."""
+    expression perturbed, ``shape_param.json``), an RGB frame (``images/``,
+    PNG, and all frames as ``video.mp4``, mp4v at 30 fps) and its camera
+    (``cam_params/``). Returns per frame the noisy keypoints ``kpt135``, the
+    camera-space keypoints ``kpt3d``, the root pose ``root_pose`` and the
+    camera-space vertices ``verts``, and the mesh's ``faces``."""
     import json
 
+    import cv2
     import numpy as np
     import torch
 
@@ -2360,10 +2373,14 @@ def write_fit_subject(root: str, human_model_path: str, n_frames: int = 64, img=
     H, W = img
     rng = np.random.default_rng(seed)
     a = load_smplx_assets(human_model_path, "male", device="cpu")
-    for d in ("images", "cam_params", "keypoints_whole_body", "smplx_init", "flame_init"):
+    for d in ("images", "cam_params", "smplx_init", "flame_init"):
         os.makedirs(os.path.join(root, d), exist_ok=True)
     head = SMPLX_KPT_NAMES.index("Head")
     noisy = lambda x, s: (np.asarray(x) + rng.normal(0, s, np.shape(x))).tolist()
+    video = cv2.VideoWriter(os.path.join(root, "video.mp4"), cv2.VideoWriter_fourcc(*"mp4v"), 30,
+                            (W, H))
+    truth = {"kpt135": [], "kpt3d": [], "root_pose": [], "verts": [],
+             "faces": a.faces.numpy().astype(np.int64)}
     for i in range(n_frames):
         pose = {"root_pose": np.asarray([math.pi, 0, 0]) + rng.normal(0, 0.05, 3),
                 "body_pose": rng.normal(0, 0.1, (21, 3)), "jaw_pose": rng.normal(0, 0.05, 3),
@@ -2374,13 +2391,16 @@ def write_fit_subject(root: str, human_model_path: str, n_frames: int = 64, img=
                 "trans": np.asarray([0.0, 0.1, 2.5]) + rng.normal(0, 0.02, 3)}
         t = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in pose.items()}
         with torch.no_grad():
-            kpt = full_keypoints(smplx_forward(a, SMPLXParams(betas=torch.zeros(a.num_shape), **t)),
-                                 a).numpy()
+            out = smplx_forward(a, SMPLXParams(betas=torch.zeros(a.num_shape), **t))
+            kpt = full_keypoints(out, a).numpy()
         xy = kpt[:, :2] / kpt[:, 2:3] * focal + np.asarray([W / 2, H / 2])
         kpts = np.concatenate([xy + rng.normal(0, 2.0, xy.shape),
-                               rng.uniform(0.6, 1.0, (135, 1))], 1)
+                               rng.uniform(0.6, 1.0, (135, 1))], 1).astype(np.float32)
+        truth["kpt135"].append(kpts)
+        truth["kpt3d"].append(kpt)
+        truth["root_pose"].append(t["root_pose"].numpy())
+        truth["verts"].append(out.vertices.numpy())
         files = {
-            "keypoints_whole_body": kpts.tolist(),
             "smplx_init": {k: noisy(pose[k], 0.05) for k in ("root_pose", "body_pose",
                                                             "lhand_pose", "rhand_pose")}
             | {"trans": noisy(pose["trans"], 0.02)},
@@ -2396,10 +2416,74 @@ def write_fit_subject(root: str, human_model_path: str, n_frames: int = 64, img=
             with open(os.path.join(root, d, f"{i}.json"), "w") as f:
                 json.dump(payload, f)
         coarse = rng.integers(0, 256, (H // 8 + 1, W // 8 + 1, 3), np.uint8)
-        write_png(os.path.join(root, "images", f"{i}.png"),
-                  np.kron(coarse, np.ones((8, 8, 1), np.uint8))[:H, :W], level=1)
+        frame = np.kron(coarse, np.ones((8, 8, 1), np.uint8))[:H, :W]
+        write_png(os.path.join(root, "images", f"{i}.png"), frame, level=1)
+        video.write(np.ascontiguousarray(frame[:, :, ::-1]))
+    video.release()
     with open(os.path.join(root, "flame_init", "shape_param.json"), "w") as f:
         json.dump(rng.normal(0, 0.1, 100).tolist(), f)
+    return truth
+
+
+def seeded_plane(img, focal: float, seed: int = 0):
+    """(H, W) float64 depth of a seeded background plane behind the subject:
+    normal (nx, ny, 1) normalised with nx, ny in [-0.15, 0.15], 4.5-5.5 m
+    from the camera, at pixel (i, j) along the ray ((j - W/2) / f,
+    (i - H/2) / f, 1), the rays ``BkgCloudAccumulator.point_cloud``
+    back-projects along."""
+    import numpy as np
+
+    H, W = img
+    rng = np.random.default_rng(seed)
+    n = np.asarray([*rng.uniform(-0.15, 0.15, 2), 1.0])
+    n /= np.linalg.norm(n)
+    d = rng.uniform(4.5, 5.5)
+    ii, jj = np.meshgrid(np.arange(H, dtype=np.float64), np.arange(W, dtype=np.float64),
+                         indexing="ij")
+    return d / (n[0] * (jj - W / 2) / focal + n[1] * (ii - H / 2) / focal + n[2])
+
+
+class InjectedDetectors:
+    """The three detector networks of the preprocessing apps, answering frame
+    after frame in the order their drivers visit the frames (by index):
+
+    * ``infer`` (mmpose): a weaker distractor (150 px off, half the scores)
+      and the frame's own keypoints in the COCO-WholeBody order, so that
+      ``best_instance`` has to choose;
+    * ``set_image`` / ``predict`` (SAM): the body's rendered silhouette;
+    * ``depth`` (Depth-Anything): ``A - B * field`` (LARGER = closer), the
+      field being the body's rendered depth over ``plane``.
+    """
+
+    def __init__(self, kpt133, silhouettes, fields, A: float, B: float):
+        self.kpt133, self.sil, self.fields, self.A, self.B = kpt133, silhouettes, fields, A, B
+        self.calls = {"mmpose": 0, "sam": 0, "depth": 0}
+
+    def _next(self, what):
+        i = self.calls[what]
+        self.calls[what] += 1
+        return i
+
+    def infer(self, img_rgb):
+        import numpy as np
+
+        k = self.kpt133[self._next("mmpose")]
+        return [(k[:, :2] + np.float32(150.0), k[:, 2] * np.float32(0.5)), (k[:, :2], k[:, 2])]
+
+    def set_image(self, img):
+        self.frame = self._next("sam")
+
+    def predict(self, point_coords, point_labels, box, multimask_output, mask_input=None):
+        import numpy as np
+
+        m = self.sil[self.frame].cpu().numpy()
+        return m[None], np.asarray([0.9]), np.zeros((1, 256, 256), np.float32)
+
+    def depth(self, img_rgb):
+        return self.rel(self._next("depth")).cpu().numpy()
+
+    def rel(self, i):
+        return (self.A - self.B * self.fields[i]).float()
 
 
 def device_launches(fn) -> dict:
@@ -2445,42 +2529,86 @@ FIT_ITRS = (260, 40, 40)  # iterations per epoch: the CLI's 500 / 250 / 250, cut
 
 def phase_fit(device, n_frames=64, img=(1080, 1920), focal=1200.0, itrs=FIT_ITRS, cmp_frames=4,
               unwrap_args=()) -> dict:
-    """The fitting half as a user runs it: ``write_human_model_dir``'s released
-    layout (10,272 vertices, with the flip correspondences) and a
-    ``write_fit_subject`` of ``n_frames`` frames at ``img``; ``apps.fit.main``
-    at its defaults (batch 64, three epochs; ``itrs`` iterations per epoch,
-    ``FIT_ITRS`` against the CLI's 500 / 250 / 250 to keep the phase near two
-    minutes, with the root-only boundary at 100, the hand one at 250 and the
-    frozen last epoch; None runs the CLI's schedule), its check renders on
-    where cv2 is, else with ``--no_vis`` after checking that the CLI refuses
-    without it; then ``apps.unwrap.main`` at its defaults (``unwrap_args`` for
-    a rehearsal). Logs the fit step's median host ms past warm-up, the peak
-    memory, the total and ``smplx_kpt_proj`` losses at the first and last
-    iteration (both must fall), the unwrap's seconds and coverage. Then one
-    ``fit_step`` on ``cmp_frames`` frames at full width on the card, its
-    device launches and time (torch.profiler), and the same step on the CPU
-    (losses rtol 1e-4; gradients 1e-3 of each leaf's largest plus 2^-14, the
-    float32 rounding of the 1e5-weighted Laplacian term; leaves 1e-3 of their
-    largest where the gradient is above 2^-12, Adam's first step being +-lr
-    whatever the gradient's size), and ``unwrap_sequence`` on two frames at an
-    eighth of the resolution against the CPU's (the mask equal but on ties:
-    a flipped atlas face or a decision within 1e-4 of its threshold; the
-    texture within 8 ulp of the frame's width where both masks are set).
-    Counters at 0 before the fit CLI and read after the unwrap."""
+    """The preprocessing and fitting half as a user runs it, from a video to
+    the background point cloud: ``write_human_model_dir``'s released layout
+    (10,272 vertices, with the flip correspondences) and a
+    ``write_fit_subject`` of ``n_frames`` frames at ``img`` (``video.mp4``;
+    no ``frames/``, no keypoints, masks or ``smplx_optimized/``); then
+    ``apps.preprocess.main`` at its defaults on the card, with the three
+    detector networks injected (``InjectedDetectors``): the frames extracted,
+    the keypoints, the masks, ``apps.fit.main`` at its defaults (batch 64,
+    three epochs; ``itrs`` iterations per epoch, ``FIT_ITRS`` against the
+    CLI's 500 / 250 / 250 to keep the phase near two minutes, with the
+    root-only boundary at 100, the hand one at 250 and the frozen last epoch;
+    None runs the CLI's schedule) with its check renders, ``apps.unwrap.main``
+    at its defaults (``unwrap_args`` for a rehearsal), the smoothing and its
+    check video, the depth maps and ``bkg_point_cloud.txt``. Counters at 0
+    just before and read just after. Logs each step's seconds, the fit step's
+    median host ms past warm-up, the peak memory, the total and
+    ``smplx_kpt_proj`` losses at the first and last iteration (both must
+    fall), the unwrap's coverage and the cloud's point count, and checks:
+
+    * every output of the reference layout is there;
+    * the keypoint files are the injected best instance and the masks the
+      injected silhouettes, exactly;
+    * the cloud has a point for each pixel that was background in some frame,
+      each the mean of the frames' aligned depths and colors there: z within
+      1e-4 relative + 1e-5 m of that mean recomputed in float64 from the
+      seeded field (the relative depth crosses in float32, the cloud as
+      ``%.6f`` text), x and y on the pixel's ray, colors the mean of the
+      extracted frames within 1e-5; so its points lie on the seeded plane
+      within the alignment's own error, which the fit sets: the driver
+      aligns onto the fitted meshes, and frame i's scale and shift
+      (alpha_i, beta_i; 1 and 0 for the seeded body) move a point
+      |(alpha_i - 1) z_plane + beta_i| off the plane, logged with its
+      median and largest;
+    * on one frame, a relative depth that is an affine map of the seeded
+      body's own render aligns back onto that render within 1e-4 m;
+    * card against CPU on one frame, at an eighth of the resolution (the
+      CPU's rasterizer) and each function on the same inputs:
+      ``render_smplx_depth`` (the covered pixels equal but on edge ties, a
+      barycentric within 1e-4 of 0 on the covering side; the depth within
+      1e-5 relative), ``align_depth_to_smplx`` and the accumulated cloud
+      (1e-6 relative + 1e-6), and ``umeyama`` on the layout's FLAME and
+      SMPL-X face templates (1e-5); ``fitting_init``
+      on the frame's keypoints: ``flame_root_init`` gives the root pose back
+      within 1e-3 rad (the layout's FLAME is the SMPL-X head), the crop
+      camera projects the camera-space keypoints where ``keypoints_to_crop``
+      maps their projections (1e-3 px), ``smplx_trans_init`` is finite and in
+      front of the camera.
+
+    Then one ``fit_step`` on ``cmp_frames`` frames at full width on the card,
+    its device launches and time (torch.profiler), and the same step on the
+    CPU (losses rtol 1e-4; gradients 1e-3 of each leaf's largest plus 2^-14,
+    the float32 rounding of the 1e5-weighted Laplacian term; leaves 1e-3 of
+    their largest where the gradient is above 2^-12, Adam's first step being
+    +-lr whatever the gradient's size), and ``unwrap_sequence`` on two frames
+    at an eighth of the resolution against the CPU's (the mask equal but on
+    ties: a flipped atlas face or a decision within 1e-4 of its threshold;
+    the texture within 8 ulp of the frame's width where both masks are
+    set)."""
+    import json
     import shutil
     import tempfile
 
+    import cv2
     import numpy as np
     import torch
 
-    from exavatar_release_tpu_torch.apps import fit, unwrap
+    from exavatar_release_tpu_torch.apps import preprocess, run_depth_anything, run_mmpose, \
+        run_sam, unwrap
     from exavatar_release_tpu_torch.apps.common import build_fit_statics_for
+    from exavatar_release_tpu_torch.data import depth_cloud as dc
     from exavatar_release_tpu_torch.fitting import config as fit_config
     from exavatar_release_tpu_torch.fitting import fit as F
+    from exavatar_release_tpu_torch.fitting.keypoints import SMPLX_KPT_NAMES
+    from exavatar_release_tpu_torch.fitting.kpt_convert import COCO_WHOLEBODY_133_NAMES, \
+        change_kpt_name
     from exavatar_release_tpu_torch.fitting.model import FitFrameData, fitting_forward
     from exavatar_release_tpu_torch.fitting.params import init_fitting_params
     from exavatar_release_tpu_torch.fitting.unwrap import build_uv_maps, unwrap_sequence
     from exavatar_release_tpu_torch.ops.mesh_raster import rasterize_mesh
+    from exavatar_release_tpu_torch.utils.mesh_io import load_ply
 
     res = {"ok": True}
 
@@ -2489,54 +2617,85 @@ def phase_fit(device, n_frames=64, img=(1080, 1920), focal=1200.0, itrs=FIT_ITRS
         log(f"[fit] {name}: {detail} {'ok' if cond else 'FAIL'}")
 
     cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     work = tempfile.mkdtemp(prefix="chip_smoke_fit_")
     hm, root = os.path.join(work, "human_model"), os.path.join(work, "subject")
     t0 = time.perf_counter()
     write_human_model_dir(hm)
-    write_fit_subject(root, hm, n_frames, img, focal)
+    truth = write_fit_subject(root, hm, n_frames, img, focal)
     H, W = img
     log(f"[fit] released layout (10,272 vertices, flip correspondences) and a {n_frames}-frame "
-        f"{W}x{H} fitting subject written in {time.perf_counter() - t0:.1f} s")
+        f"{W}x{H} subject (video.mp4, images/, cameras, initial estimates) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # what the three injected networks answer: the bodies' silhouettes and
+    # depths, rendered on the device, over a seeded background plane
+    t0 = time.perf_counter()
+    fo, pp = np.asarray([focal, focal], np.float32), np.asarray([W / 2, H / 2], np.float32)
+    faces = truth["faces"]
+    on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    body_z = [dc.render_smplx_depth(on(v), faces, fo, pp, img) for v in truth["verts"]]
+    plane = on(seeded_plane(img, focal))
+    fields = [torch.where(z > 0, z.double(), plane) for z in body_z]
+    rng = np.random.default_rng(2)
+    B = float(rng.uniform(0.5, 2.0))
+    A = B * (float(plane.max()) + 1.0)
+    kpt133 = [change_kpt_name(k, SMPLX_KPT_NAMES, COCO_WHOLEBODY_133_NAMES)
+              for k in truth["kpt135"]]
+    dets = InjectedDetectors(kpt133, [z > 0 for z in body_z], fields, A, B)
+    sync()
+    log(f"[fit] the injected detectors' answers rendered in {time.perf_counter() - t0:.1f} s "
+        f"(plane {float(plane.min()):.3f}-{float(plane.max()):.3f} m; relative depth "
+        f"{A:.4f} - {B:.4f} z)")
+
     args = ["--subject_root", root, "--human_model_path", hm, "--device", device]
-    schedule = fit_config.FittingConfig.itr_opt_num
+    patched = [(fit_config.FittingConfig, "itr_opt_num"), (run_mmpose, "load_mmpose_inferencer"),
+               (run_sam, "load_sam_predictor"), (run_depth_anything, "load_depth_model"),
+               (unwrap, "main")]
+    saved = [getattr(o, n) for o, n in patched]
     if itrs is not None:
         fit_config.FittingConfig.itr_opt_num = lambda self, epoch: itrs[epoch]
     cfg = fit_config.FittingConfig()
     sched = [cfg.itr_opt_num(e) for e in range(cfg.end_epoch)]
-    try:
-        import cv2  # noqa: F401  (the CLI's check renders)
-        vis = []
-    except ImportError:
-        vis = ["--no_vis"]
-        try:
-            fit.main(args)
-            refused = ""
-        except SystemExit as e:
-            refused = str(e)
-        check("fit CLI without cv2", "cv2" in refused and not os.path.exists(
-            os.path.join(root, "smplx_optimized")), f"refuses: {refused!r}")
+    run_mmpose.load_mmpose_inferencer = lambda *a, **k: dets.infer
+    run_sam.load_sam_predictor = lambda *a, **k: dets
+    run_depth_anything.load_depth_model = lambda *a, **k: dets.depth
+    if unwrap_args:
+        unwrap.main = lambda argv: saved[-1](list(argv) + list(unwrap_args))
     reset_launches()
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
-        hist = fit.main(args + vis)
+        out = preprocess.main(args)
     finally:
-        fit_config.FittingConfig.itr_opt_num = schedule
-    if cuda:
-        torch.cuda.synchronize()
-    res["fit_s"] = time.perf_counter() - t0
+        for (o, n), v in zip(patched, saved):
+            setattr(o, n, v)
+    sync()
+    res["preprocess_s"] = time.perf_counter() - t0
+    res["launches"] = read_launches()
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    res["step_s"] = out["seconds"]
+    log(f"[fit] preprocess CLI in {res['preprocess_s']:.2f} s, peak memory {res['peak_gib']} "
+        f"GiB; seconds by step: " + ", ".join(f"{k} {v:.2f}" for k, v in out["seconds"].items()))
+    check("injected detectors called once a frame", dets.calls == dict.fromkeys(dets.calls,
+                                                                             n_frames),
+          f"{dets.calls}")
+    check("no compositing kernel launched", not any(res["launches"].values()),
+          f"{res['launches']} (none in JAX either)")
+
+    hist = out["fit"]
     # past warm-up: the first 5 steps of the run and the logged ones (a read each) left out
     steady = [h["step_s"] for k, h in enumerate(hist) if k >= 5 and h["itr"] % 50]
+    res["fit_s"] = out["seconds"]["fit"]
     res["step_ms_median"] = 1e3 * float(np.median(steady))
     res["steps"] = len(hist)
     first, last = hist[0], hist[-1]
     log(f"[fit] fit CLI: {len(hist)} steps (schedule {sched}, batch "
-        f"{min(64, n_frames)}) in {res['fit_s']:.2f} s; step host ms median "
-        f"{res['step_ms_median']:.3f} (p10 {1e3 * np.percentile(steady, 10):.3f}, p90 "
-        f"{1e3 * np.percentile(steady, 90):.3f}); peak memory {res['peak_gib']} GiB")
+        f"{min(64, n_frames)}) in {res['fit_s']:.2f} s with its check renders; step host ms "
+        f"median {res['step_ms_median']:.3f} (p10 {1e3 * np.percentile(steady, 10):.3f}, p90 "
+        f"{1e3 * np.percentile(steady, 90):.3f})")
     for k in ("total", "smplx_kpt_proj"):
         res[k] = (first[k], last[k])
         check(f"{k} falls", np.isfinite([first[k], last[k]]).all() and last[k] < first[k],
@@ -2544,31 +2703,185 @@ def phase_fit(device, n_frames=64, img=(1080, 1920), focal=1200.0, itrs=FIT_ITRS
     for e in range(cfg.end_epoch):  # each epoch's first and last totals
         ep = [h["total"] for h in hist if h["epoch"] == e]
         log(f"[fit]   epoch {e}: total {ep[0]:.6f} -> {ep[-1]:.6f} over {len(ep)} iterations")
-    out = os.path.join(root, "smplx_optimized")
-    check("fit outputs", all(os.path.exists(os.path.join(out, "smplx_params", f"{i}.json"))
-                             for i in range(n_frames))
-          and all(os.path.exists(os.path.join(out, n)) for n in (
-              "shape_param.json", "face_offset.json", "joint_offset.json",
-              "locator_offset.json")), f"{n_frames} parameter files and the identity tables")
-    if not vis:
-        made = [os.path.join(out, "meshes", f"{i}_{m}.ply") for i in range(n_frames)
-                for m in ("smplx", "flame")]
-        made += [os.path.join(out, "renders", f"{i}_smplx.jpg") for i in range(n_frames)]
-        made += [os.path.join(root, "smplx_optimized.mp4")]
-        check("fit check renders (cv2 here)", all(os.path.exists(p) for p in made),
-              f"{2 * n_frames} meshes, {n_frames} overlays and the check video")
+    res["coverage"] = out["coverage"]
+    check("unwrap", out["coverage"] is not None and 0 < out["coverage"] <= 1,
+          f"{out['seconds']['unwrap']:.2f} s, coverage {out['coverage']}")
 
+    # every output of the reference layout
+    opt = os.path.join(root, "smplx_optimized")
+    per_frame = {"frames": "{}.png", "keypoints_whole_body": "{}.json", "masks": "{}.png",
+                 "depthmaps": "{}.png", "smplx_optimized/smplx_params": "{}.json",
+                 "smplx_optimized/meshes": "{}_smplx.ply",
+                 "smplx_optimized/renders": "{}_smplx.jpg",
+                 "smplx_optimized/meshes_smoothed": "{}_smplx.ply",
+                 "smplx_optimized/renders_smoothed": "{}_smplx.jpg"}
+    missing = [f"{d}/{n.format(i)}" for d, n in per_frame.items() for i in range(n_frames)
+               if not os.path.exists(os.path.join(root, d, n.format(i)))]
+    missing += [n for n in ("smplx_optimized/shape_param.json", "smplx_optimized/face_offset.json",
+                            "smplx_optimized/joint_offset.json",
+                            "smplx_optimized/locator_offset.json",
+                            "smplx_optimized/face_texture.png",
+                            "smplx_optimized/face_texture_mask.png", "smplx_optimized.mp4",
+                            "smplx_optimized_smoothed.mp4", "keypoints_whole_body.mp4",
+                            "masks.mp4", "depthmaps.mp4", "bkg_point_cloud.txt")
+                if not os.path.exists(os.path.join(root, n))]
+    check("the reference layout", not missing,
+          f"{len(per_frame)} directories of {n_frames} files and 12 more; missing "
+          f"{missing[:5] or 'none'}")
+
+    # the detectors' files: the injected best instance, the silhouettes
     t0 = time.perf_counter()
-    coverage = unwrap.main(args + list(unwrap_args))
-    res["unwrap_s"], res["coverage"] = time.perf_counter() - t0, coverage
-    check("unwrap CLI", 0 < coverage <= 1 and all(os.path.exists(os.path.join(out, n)) for n in (
-        "face_texture.png", "face_texture_mask.png")),
-        f"{res['unwrap_s']:.2f} s, coverage {coverage:.4f}")
-    if cuda:
-        torch.cuda.synchronize()
-    res["launches"] = read_launches()
-    check("no compositing kernel launched", not any(res["launches"].values()),
-          f"{res['launches']} (none in JAX either)")
+    kp_ok = mask_ok = True
+    for i in range(n_frames):
+        with open(os.path.join(root, "keypoints_whole_body", f"{i}.json")) as f:
+            kp_ok &= bool(np.array_equal(np.asarray(json.load(f), np.float32), kpt133[i]))
+        m = cv2.imread(os.path.join(root, "masks", f"{i}.png"), cv2.IMREAD_GRAYSCALE)
+        mask_ok &= bool(np.array_equal(m, dets.sil[i].cpu().numpy().astype(np.uint8) * 255))
+    check("keypoint files are the best instance", kp_ok,
+          f"{n_frames} files equal the injected keypoints (the distractor has half the scores)")
+    check("mask files are the silhouettes", mask_ok, f"{n_frames} masks equal, pixel for pixel")
+
+    # the cloud, against its mean recomputed in float64 from the seeded field
+    with open(os.path.join(root, "bkg_point_cloud.txt")) as f:
+        cloud = np.fromstring(f.read(), sep=" ").reshape(-1, 6)
+    res["cloud_points"] = cloud.shape[0]
+    acc = {k: torch.zeros((H, W), dtype=torch.float64, device=device) for k in ("z", "n")}
+    acc["rgb"] = torch.zeros((H, W, 3), dtype=torch.float64, device=device)
+    dev_max = torch.zeros((H, W), dtype=torch.float64, device=device)
+    ab = []
+    for i in range(n_frames):
+        verts, mfaces = load_ply(os.path.join(opt, "meshes_smoothed", f"{i}_smplx.ply"))
+        s = dc.render_smplx_depth(on(verts), mfaces, fo, pp, img).double()
+        fg, field = s > 0, fields[i]
+        if int(fg.sum()) < 16:  # the driver keeps the relative depth
+            rel = dets.rel(i).double()
+            aligned = float(rel.max()) - rel
+            ab.append((float("nan"), float("nan")))
+        else:
+            mad = lambda x: torch.abs(x - x.mean()).mean()
+            alpha = float(mad(s[fg]) / mad(field[fg]))
+            beta = float(s[fg].mean()) - alpha * float(field[fg].mean())
+            aligned = alpha * field + beta
+            ab.append((alpha, beta))
+        bkg = ~dets.sil[i]
+        frame = cv2.imread(os.path.join(root, "frames", f"{i}.png"))[:, :, ::-1]
+        acc["z"] += aligned * bkg
+        acc["n"] += bkg
+        acc["rgb"] += on(frame.copy()).double() / 255.0 * bkg[..., None]
+        dev_max = torch.where(bkg, torch.maximum(dev_max, (aligned - plane).abs()), dev_max)
+    seen = acc["n"] > 0
+    n_seen = int(seen.sum())
+    ii, jj = torch.nonzero(seen, as_tuple=True)
+    z_want = (acc["z"] / acc["n"].clamp(min=1))[seen].cpu().numpy()
+    rgb_want = (acc["rgb"] / acc["n"].clamp(min=1)[..., None])[seen].cpu().numpy()
+    z_plane = plane[seen].cpu().numpy()
+    ok_shape = cloud.shape[0] == n_seen
+    if ok_shape:
+        z = cloud[:, 2]
+        z_err = np.abs(z - z_want) / (1e-4 * np.abs(z_want) + 1e-5)
+        ray = np.stack([(jj.cpu().numpy() - W / 2) / focal, (ii.cpu().numpy() - H / 2) / focal],
+                       1) * z[:, None]
+        xy_err = float(np.abs(cloud[:, :2] - ray).max())
+        rgb_err = float(np.abs(cloud[:, 3:] - rgb_want).max())
+        off = np.abs(z - z_plane)
+        bound = dev_max[seen].cpu().numpy() + 1e-4 * z_plane + 1e-5
+    alphas = [a for a, _ in ab if np.isfinite(a)]
+    betas = [b for _, b in ab if np.isfinite(b)]
+    check("cloud: a point per background pixel", ok_shape,
+          f"{cloud.shape[0]} points, {n_seen} pixels background in some frame of {H * W}")
+    if ok_shape:
+        check("cloud: the frames' aligned depth and colors", z_err.max() <= 1 and xy_err <= 1e-4
+              and rgb_err <= 1e-5,
+              f"z worst {float(z_err.max()):.3f} of its tolerance (1e-4 z + 1e-5 m), x/y off "
+              f"the pixel's ray by {xy_err:.2e} m, colors by {rgb_err:.2e}")
+        check("cloud: on the seeded plane within the alignment's error",
+              (off <= bound).all(),
+              f"|z - z_plane| median {float(np.median(off)):.4f} m, largest "
+              f"{float(off.max()):.4f} m ({float((off / z_plane).max()):.2%}); the fitted "
+              f"meshes' scale alpha {min(alphas, default=float('nan')):.4f}-"
+              f"{max(alphas, default=float('nan')):.4f} and shift beta "
+              f"{min(betas, default=float('nan')):.4f}-{max(betas, default=float('nan')):.4f} m "
+              f"(1 and 0 for the seeded body; {n_frames - len(alphas)} frames without 16 mesh "
+              f"pixels)")
+    log(f"[fit] the keypoint, mask and cloud checks in {time.perf_counter() - t0:.1f} s")
+
+    # one frame: a relative depth that is an affine map of the body's own
+    # render aligns back onto it; then card against CPU
+    t0 = time.perf_counter()
+    rel0 = dets.rel(0)
+    hi = float(rel0.max())
+    exact = dc.align_depth_to_smplx(hi - rel0, body_z[0])
+    fg0 = body_z[0] > 0
+    err0 = float((exact - body_z[0])[fg0].abs().max())
+    check("alignment onto the render of the same mesh", err0 <= 1e-4,
+          f"{int(fg0.sum())} mesh pixels within {err0:.2e} m (limit 1e-4)")
+    # the same inputs on the card and on the CPU, at an eighth of the
+    # resolution (the CPU's rasterizer): each function's own inputs shared
+    sm, fo8, pp8 = (H // 8, W // 8), fo / 8, pp / 8
+    v0 = torch.from_numpy(truth["verts"][0])
+    z8 = dc.render_smplx_depth(v0, faces, fo8, pp8, sm)
+    rel8 = (A - B * torch.where(z8 > 0, z8.double(), torch.from_numpy(seeded_plane(sm, focal / 8)))
+            ).float()
+    low8 = float(rel8.max()) - rel8
+    al8 = dc.align_depth_to_smplx(low8, z8)
+    col8 = torch.from_numpy(np.random.default_rng(3).uniform(size=sm + (3,)).astype(np.float32))
+    cpu = {}
+    for r, d in (("card", device), ("cpu", "cpu")):
+        frags = rasterize_mesh(v0.to(d), torch.from_numpy(faces).to(d),
+                               torch.from_numpy(fo8).to(d), torch.from_numpy(pp8).to(d), sm)
+        z = dc.render_smplx_depth(v0.to(d), faces, fo8, pp8, sm)
+        al = dc.align_depth_to_smplx(low8.to(d), z8.to(d))
+        acc1 = dc.BkgCloudAccumulator(sm, d)
+        acc1.add(al8.to(d), col8.to(d), (z8 > 0).float().to(d))
+        cpu[r] = (frags.bary.min(-1).values.cpu().numpy(), z.cpu().numpy(), al.cpu().numpy(),
+                  acc1.point_cloud(fo8, pp8).cpu().numpy())
+    (bc, zc, ac, cc), (bg, zg, ag, cg) = cpu["cpu"], cpu["card"]
+    flip = (zc > 0) != (zg > 0)
+    ties = np.where(zg > 0, bg, bc)[flip]
+    both = (zc > 0) & (zg > 0)
+    z_rel = float((np.abs(zg - zc)[both] / zc[both]).max())
+    check("render_smplx_depth card vs CPU", (ties < 1e-4).all() and z_rel <= 1e-5,
+          f"at {sm[1]}x{sm[0]}: {int(flip.sum())} of {int((zc > 0).sum())} covered pixels flip "
+          f"(all edge ties), depth {z_rel:.2e} relative")
+    close = lambda a, b: bool(a.shape == b.shape and (np.abs(a - b) <= 1e-6 + 1e-6 * np.abs(b))
+                              .all())
+    check("align_depth_to_smplx and the cloud card vs CPU", close(ag, ac) and close(cg, cc),
+          f"aligned {float(np.abs(ag - ac).max()):.2e}, cloud of {cc.shape[0]} points "
+          f"{float(np.abs(cg - cc).max()) if cg.shape == cc.shape else 'shapes differ'}")
+
+    from exavatar_release_tpu_torch.core.geometry import umeyama
+    from exavatar_release_tpu_torch.core.rotations import axis_angle_to_matrix
+    from exavatar_release_tpu_torch.data import fitting_init as fi
+    from exavatar_release_tpu_torch.data.subject import bbox_from_keypoints
+    from exavatar_release_tpu_torch.models.smplx import load_flame_assets, load_prior_tables
+
+    st = build_fit_statics_for(hm, "cpu")
+    sm_t = st.smplx_assets.v_template.numpy()
+    fl_t = load_flame_assets(hm, device="cpu").v_template.numpy()
+    fidx = np.asarray(load_prior_tables(hm)["face_vertex_idx"])
+    root0, k0 = truth["root_pose"][0], truth["kpt135"][0]
+    R0 = axis_angle_to_matrix(torch.from_numpy(root0)).numpy()
+    tgt = (sm_t @ R0.T)[fidx]
+    um = {r: [x.cpu().numpy() for x in umeyama(torch.from_numpy(fl_t).to(d),
+                                                torch.from_numpy(tgt).to(d), False)]
+          for r, d in (("card", device), ("cpu", "cpu"))}
+    um_err = max(float(np.abs(g - c).max()) for g, c in zip(um["card"], um["cpu"]))
+    pose, _ = fi.flame_root_init(root0, np.asarray([0.0, 0.1, 2.5], np.float32), sm_t, fidx, fl_t)
+    Rf = axis_angle_to_matrix(torch.from_numpy(pose)).numpy()
+    ang = float(np.arccos(np.clip((np.trace(Rf.T @ R0) - 1) / 2, -1, 1)))
+    bbox = fi.set_aspect_ratio(bbox_from_keypoints(k0[:, :2], (k0[:, 2] > 0.2).astype(np.float32)))
+    fc, pc = fi.crop_camera_intrinsics(fo, pp, bbox, (256, 256))
+    k3 = truth["kpt3d"][0]
+    proj = k3[:, :2] / k3[:, 2:3]
+    crop_err = float(np.abs(proj * fc + pc - fi.keypoints_to_crop(proj * fo + pp, bbox,
+                                                                  (256, 256))).max())
+    t_init = fi.smplx_trans_init(k0, fo, pp)
+    check("fitting_init on the frame", um_err <= 1e-5 and ang <= 1e-3 and crop_err <= 1e-3
+          and np.isfinite(t_init).all() and t_init[2] > 0,
+          f"umeyama card vs CPU {um_err:.2e}; flame_root_init {ang:.2e} rad off the root pose; "
+          f"crop camera {crop_err:.2e} px; smplx_trans_init {np.round(t_init, 3).tolist()} "
+          f"(the body at [0, 0.1, 2.5])")
+    log(f"[fit] one-frame checks in {time.perf_counter() - t0:.1f} s")
 
     # one step at full width from one state, on the card and on the CPU
     t_cmp = time.perf_counter()
@@ -2653,8 +2966,6 @@ def phase_fit(device, n_frames=64, img=(1080, 1920), focal=1200.0, itrs=FIT_ITRS
     # estimate (the fit's translations live in its normalized space), the
     # frames and cameras at an eighth of the resolution and a 256x256 atlas
     # (the CPU's rasterizer)
-    import json
-
     from exavatar_release_tpu_torch.apps.common import build_prior_for, face_mesh_for
     from exavatar_release_tpu_torch.data.subject import read_rgb
     from exavatar_release_tpu_torch.models.smplx import SMPLXParams, smplx_forward

@@ -77,10 +77,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
 
     smplx_init = load_dir("smplx_init")
     flame_init = load_dir("flame_init")
-    kpts = {}
-    for p in glob(osp.join(args.subject_root, "keypoints_whole_body", "*.json")):
-        with open(p) as f:
-            kpts[int(osp.basename(p).split(".")[0])] = np.asarray(json.load(f), np.float32)
+    kpts = load_keypoints(args.subject_root)
     frame_ids = sorted(set(smplx_init) & set(kpts))
     assert frame_ids, "no frames with both smplx_init and keypoints"
 
@@ -204,6 +201,25 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
             _save_fit_vis(args, out_dir, statics, p, frame_ids, logger)
     logger.info(f"fitting results written to {out_dir}")
     return history
+
+
+def load_keypoints(subject_root: str) -> Dict[int, np.ndarray]:
+    """``keypoints_whole_body/<idx>.json`` in the SMPL-X 135-keypoint
+    convention the fit supervises. A file of 133 rows is the detector's
+    COCO-WholeBody order, which ``apps/run_mmpose.py`` writes: it is mapped by
+    name (``fitting.kpt_convert.coco133_to_smplx135``, as the reference's
+    Custom.py:21-28 does), where the JAX package's CLI would take it as it is
+    and fail on its shape."""
+    from ..fitting.kpt_convert import COCO_WHOLEBODY_133_NAMES, coco133_to_smplx135
+
+    kpts = {}
+    for p in glob(osp.join(subject_root, "keypoints_whole_body", "*.json")):
+        with open(p) as f:
+            k = np.asarray(json.load(f), np.float32)
+        if k.shape[0] == len(COCO_WHOLEBODY_133_NAMES):
+            k = coco133_to_smplx135(k)
+        kpts[int(osp.basename(p).split(".")[0])] = k
+    return kpts
 
 
 def _save_fit_vis(args, out_dir, statics, p, frame_ids, logger):

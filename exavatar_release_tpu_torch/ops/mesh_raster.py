@@ -3,7 +3,8 @@
 
 Faces are binned to image tiles with the Gaussian rasterizer's binning
 (bounding circle -> tile rectangle); each tile then z-tests its face list
-over its pixels with vectorized edge functions, 64 faces at a time. The
+over its pixels with vectorized edge functions, 64 faces at a time, tiles
+with like counts batched together and empty tiles skipped. The
 choice of the winning face is not differentiable; barycentrics are then
 computed again, differentiably, for the winner, so gradients reach the
 vertices through the barycentrics and the texture through the UV sample.
@@ -128,19 +129,28 @@ def rasterize_mesh(
         px = ox[:, None] + ((i % tile_w).float() + 0.5)[None, :]
         py = oy[:, None] + ((i // tile_w).float() + 0.5)[None, :]
 
-        bz, bf = [], []
+        # a tile's faces come first in its window, the dummy face after
+        # them: the tiles go in batches from the fullest down, each z-testing
+        # only the 64-face chunks its fullest tile fills; empty tiles none
+        counts = torch.clamp(binning.tile_counts.long(), max=face_ids.shape[1])
+        busy = torch.argsort(counts, descending=True, stable=True)
+        busy_counts = counts[busy].tolist()  # the one read of the binning
+        best_z = torch.full(px.shape, torch.inf, device=dev)
+        best_f = torch.full(px.shape, -1, dtype=torch.int64, device=dev)
         for t0 in range(0, ny * nx, _TILE_BATCH):
-            sl = slice(t0, t0 + _TILE_BATCH)
-            z_b, f_b = _select_faces(tri_pad, invz_pad, face_ids[sl], px[sl], py[sl], F)
-            bz.append(z_b)
-            bf.append(f_b)
+            if busy_counts[t0] == 0:
+                break
+            b = busy[t0:t0 + _TILE_BATCH]
+            k = -(-busy_counts[t0] // _FACE_CHUNK) * _FACE_CHUNK
+            best_z[b], best_f[b] = _select_faces(tri_pad, invz_pad, face_ids[b, :k], px[b],
+                                                 py[b], F)
 
         def tiles_to_img(x):
             x = x.reshape(ny, nx, tile_h, tile_w)
             return x.permute(0, 2, 1, 3).reshape(ny * tile_h, nx * tile_w)[:H, :W]
 
-        pix_face = tiles_to_img(torch.cat(bf))
-        zbuf = tiles_to_img(torch.cat(bz))
+        pix_face = tiles_to_img(best_f)
+        zbuf = tiles_to_img(best_z)
 
     # differentiable barycentrics of the winning face
     pj = (torch.arange(W, device=dev).float() + 0.5)[None, :].expand(H, W)

@@ -9,7 +9,6 @@ avatar/main/get_neutral_pose.py). Host-side numpy.
 """
 from __future__ import annotations
 
-import struct
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -39,15 +38,19 @@ def save_ply(path: str, verts: np.ndarray, faces: Optional[np.ndarray] = None,
     with open(path, "wb") as f:
         f.write(("\n".join(header) + "\n").encode())
         if has_c:
-            c8 = np.clip(np.asarray(colors) * 255, 0, 255).astype(np.uint8)
-            for i in range(n):
-                f.write(struct.pack("<fff", *verts[i]) + c8[i].tobytes())
+            rows = np.empty(n, [("xyz", "<f4", (3,)), ("rgb", "u1", (3,))])
+            rows["xyz"] = verts
+            rows["rgb"] = np.clip(np.asarray(colors) * 255, 0, 255).astype(np.uint8)
+            f.write(rows.tobytes())
         else:
             f.write(verts.astype("<f4").tobytes())
         if faces is not None:
-            fa = np.asarray(faces, np.int32)
-            for tri in fa:
-                f.write(struct.pack("<B", 3) + tri.astype("<i4").tobytes())
+            # one pass: a uchar count and three int indices a face, unpadded
+            fa = np.asarray(faces, np.int32).reshape(-1, 3)
+            rows = np.empty(len(fa), [("n", "u1"), ("v", "<i4", (3,))])
+            rows["n"] = 3
+            rows["v"] = fa
+            f.write(rows.tobytes())
 
 
 def load_ply(path: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:

@@ -27,27 +27,25 @@ def render_mesh_overlay(
     light_dir: Tuple[float, float, float] = (0.0, 0.0, -1.0),
 ) -> np.ndarray:
     """Alpha-blend a flat-shaded mesh render over an HWC [0,1] image. The
-    mesh is rasterized on the vertices' device; shading and blending run in
-    numpy."""
+    mesh is rasterized, shaded and blended on the vertices' device; the
+    result comes back as numpy."""
     H, W = img_hwc.shape[:2]
-    verts_cam = torch.as_tensor(verts_cam, dtype=torch.float32)
+    verts_cam = torch.as_tensor(verts_cam, dtype=torch.float32).detach()
     dev = verts_cam.device
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
-    frags = rasterize_mesh(verts_cam, torch.as_tensor(np.asarray(faces), device=dev), f32(focal),
-                           f32(princpt), (H, W))
-    v = verts_cam.detach().cpu().numpy()
-    f = np.asarray(faces)
-    fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
-    fn = fn / np.maximum(np.linalg.norm(fn, axis=1, keepdims=True), 1e-12)
-    lam = np.abs(fn @ np.asarray(light_dir, np.float32))  # two-sided lambert
-    pf = frags.pix_to_face.cpu().numpy()
+    f = torch.as_tensor(np.asarray(faces), device=dev).long()
+    frags = rasterize_mesh(verts_cam, f, f32(focal), f32(princpt), (H, W))
+    v0, v1, v2 = verts_cam[f[:, 0]], verts_cam[f[:, 1]], verts_cam[f[:, 2]]
+    fn = torch.linalg.cross(v1 - v0, v2 - v0, dim=1)
+    fn = fn / torch.clamp(torch.linalg.norm(fn, dim=1, keepdim=True), min=1e-12)
+    lam = torch.abs(fn @ f32(light_dir))  # two-sided lambert
+    pf = frags.pix_to_face.long()
     hit = pf >= 0
-    shade = np.zeros((H, W), np.float32)
-    shade[hit] = 0.3 + 0.7 * lam[pf[hit]]
-    out = np.asarray(img_hwc, np.float32).copy()
-    overlay = shade[..., None] * np.asarray(color, np.float32)[None, None]
-    out[hit] = (1 - blend) * out[hit] + blend * overlay[hit]
-    return out
+    shade = torch.where(hit, 0.3 + 0.7 * lam[pf.clamp(min=0)], 0.0)
+    img = f32(img_hwc)
+    overlay = shade[..., None] * f32(color)
+    out = torch.where(hit[..., None], (1 - blend) * img + blend * overlay, img)
+    return out.cpu().numpy()
 
 
 def write_video(path: str, frames_hwc: Sequence[np.ndarray], fps: int = 30) -> None:

@@ -19,6 +19,7 @@ from exavatar_release_tpu.ops.rasterizer import RasterizeSettings as JSettings
 from exavatar_release_tpu.ops.rasterizer import rasterize as j_rasterize
 from exavatar_release_tpu_torch.apps.animate import render_motion
 from exavatar_release_tpu_torch.ops.rasterizer import RasterizeSettings as TSettings
+from torch_frame_fixture import fast_jit
 from torch_port_fixture import TwinAvatar
 
 torch.set_num_threads(2)
@@ -36,6 +37,10 @@ MODES = {
                    TSettings(pair_major=True, **COMMON),
                    {"img": 2e-3, "mask": 2e-3, "depth": 5e-3}),
 }
+
+
+# the JAX render as one program: run op by op it costs ~100 compiles
+_j_rasterize = fast_jit(j_rasterize, static_argnums=(7, 9))
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +65,7 @@ def test_render_motion_matches_jax(twin, j_assets, mode):
     )
     assert len(frames) == n
     for a, got in zip(j_assets, frames):
-        want = j_rasterize(a.mean_3d, a.scale, a.rotation, a.opacity, a.rgb, a.live,
+        want = _j_rasterize(a.mean_3d, a.scale, a.rotation, a.opacity, a.rgb, a.live,
                            j_cam, (H, W), jnp.ones(3), j_set)
         assert int(want["n_dropped"]) == 0 and int(got["n_dropped"]) == 0
         assert 0.02 < float(got["mask"].mean()) < 0.98  # the avatar is in view

@@ -47,7 +47,7 @@ from exavatar_release_tpu_torch.apps import evaluate, test, train
 from exavatar_release_tpu_torch.apps.test import RENDER_KEYS
 from exavatar_release_tpu_torch.avatar.convert import TRAIN_STATE_LEAVES, train_state_to_numpy
 from test_data import make_synthetic_subject
-from torch_frame_fixture import compile_once
+from torch_frame_fixture import compile_once, fast_jit
 from torch_port_fixture import _j_init_human, _last_layer
 
 torch.set_num_threads(2)
@@ -55,6 +55,16 @@ torch.set_num_threads(2)
 CAPACITY, CH, RES, RINGS, SEGS = 512, 8, 16, 8, 12
 ARGS = ["--device", "cpu", "--scene_capacity", str(CAPACITY), "--triplane_ch", str(CH),
         "--triplane_res", str(RES)]
+
+
+@fast_jit
+def j_metrics(lp, render, img, mask):
+    """JAX's evaluation metrics of one test frame (apps/evaluate.py's), as one
+    program."""
+    pred = render.transpose(2, 0, 1) * mask
+    gt = img * mask
+    return {"psnr": j_psnr(pred, gt, mask=mask[0]), "ssim": jnp.mean(j_ssim_map(pred, gt)),
+            "lpips": j_lpips_distance(lp, pred * 2 - 1, gt * 2 - 1)}
 
 
 @pytest.fixture(scope="module")
@@ -74,12 +84,12 @@ def cycle(tmp_path_factory, monkeypatch_module):
     # the eager initialisers cost hundreds of small compiles: the same values jitted
     monkeypatch_module.setattr(j_common, "init_human", _j_init_human)
     monkeypatch_module.setattr(j_common, "init_lpips_random",
-                               jax.jit(j_common.init_lpips_random, static_argnums=(1,)))
+                               fast_jit(j_common.init_lpips_random, static_argnums=(1,)))
     eager_frames = j_common.init_param_frames
     monkeypatch_module.setattr(j_common, "init_param_frames",
-                               lambda frames: jax.jit(lambda: eager_frames(frames))())
+                               lambda frames: fast_jit(lambda: eager_frames(frames))())
     monkeypatch_module.setattr(j_common, "sc", types.SimpleNamespace(
-        init_from_point_cloud=jax.jit(j_common.sc.init_from_point_cloud, static_argnums=(4,))))
+        init_from_point_cloud=fast_jit(j_common.sc.init_from_point_cloud, static_argnums=(4,))))
     trainables, scene_state, bundle, frame_row_of = j_common.subject_bundle(
         subject, prior, cfg, faces, uv, fuv, lpips_quiet=True)
     rng = np.random.default_rng(0)
@@ -99,7 +109,7 @@ def cycle(tmp_path_factory, monkeypatch_module):
 
     settings = JSettings(backend="ref")
     b = bundle
-    lp = j_lpips_random(jax.random.PRNGKey(3), "alex")
+    lp = fast_jit(j_lpips_random, static_argnums=(1,))(jax.random.PRNGKey(3), "alex")
     lpips_npz = osp.join(out, "lpips_alex.npz")
     j_save_lpips(lpips_npz, lp)
     renders, metrics = {}, {"psnr": [], "ssim": [], "lpips": []}
@@ -118,11 +128,9 @@ def cycle(tmp_path_factory, monkeypatch_module):
         fwd = fwd or compile_once(run, state.trainables, frame)
         r = fwd(state.trainables, frame)
         renders[f] = {k: np.asarray(r[k]) for k in RENDER_KEYS}
-        pred = r["scene_human_img_refined_composed"].transpose(2, 0, 1) * frame.mask
-        gt = frame.img * frame.mask
-        metrics["psnr"].append(float(j_psnr(pred, gt, mask=frame.mask[0])))
-        metrics["ssim"].append(float(jnp.mean(j_ssim_map(pred, gt))))
-        metrics["lpips"].append(float(j_lpips_distance(lp, pred * 2 - 1, gt * 2 - 1)))
+        for k, v in j_metrics(lp, r["scene_human_img_refined_composed"], frame.img,
+                              frame.mask).items():
+            metrics[k].append(float(v))
     return dict(root=root, out=out, ckpt=osp.join(model_dir, "snapshot_0.npz"),
                 renders=renders, metrics={k: float(np.mean(v)) for k, v in metrics.items()},
                 lpips_npz=lpips_npz, state=state)

@@ -36,6 +36,8 @@ import numpy as np
 import pytest
 import torch
 
+from exavatar_release_tpu.avatar.human import human_forward as j_human_forward
+from exavatar_release_tpu.avatar.human import init_human as j_init_human
 from exavatar_release_tpu.avatar.model import forward_frame as j_forward_frame
 from exavatar_release_tpu.ops.image_metrics import psnr as j_psnr
 from exavatar_release_tpu.tools.convergence_demo import constant_head as j_constant_head
@@ -47,7 +49,7 @@ from exavatar_release_tpu_torch.tools import convergence_demo as td
 from exavatar_release_tpu_torch.utils import jax_prng
 from exavatar_release_tpu_torch.avatar.human import human_forward as t_human_forward
 from torch_frame_fixture import _fields, _jitted_avatar_setup, _np_tree, compile_once
-from torch_port_fixture import _j_human_forward
+from torch_port_fixture import fast_jit
 
 TIE_D2 = 1e-6  # tests/test_torch_human.py
 
@@ -62,7 +64,10 @@ KW = dict(H=48, W=64, capacity=256, n_scene=120, n_frames=2, rings=8, segs=12, b
 def jax_demo():
     """The JAX demo's run at the first setting, to its second step
     (exavatar_release_tpu/tools/convergence_demo.py:main, its statements)."""
-    s = _jitted_avatar_setup(focal=60.0, **KW)
+    # the heads' draw with XLA's default options, as the JAX demo runs it:
+    # the port's draw is held to it bit for bit, and at optimisation level 0
+    # the draw rounds differently
+    s = _jitted_avatar_setup(jax.jit(j_init_human, static_argnums=(3,)), focal=60.0, **KW)
     raw = dict(scene=_fields(s.scene_state.params), aux=_fields(s.scene_state.aux),
                human=_fields(s.human_params), frames=_fields(s.param_frames), lpips=s.lpips)
     sn = s.trainables.human.scale_net
@@ -115,8 +120,9 @@ def jax_demo():
         state, losses = step_c(state, frames[i % len(frames)], sub)
         totals.append(float(losses["total"]))
     fd = s.frame_data[0]
-    human0 = _j_human_forward(tgt.human, s.buffers, s.prior, tgt.frames.lookup(0), s.id_info,
-                              fd.cam.R, fd.cam.t, s.cfg)
+    human0 = fast_jit(lambda h, pf: j_human_forward(h, s.buffers, s.prior, pf.lookup(0),
+                                                    s.id_info, fd.cam.R, fd.cam.t, s.cfg))(
+        tgt.human, tgt.frames)
     return dict(s=s, raw=raw, targets=[np.asarray(f.img) for f in frames], psnr0=psnr0,
                 totals=totals, bgs=bgs, human0=human0)
 

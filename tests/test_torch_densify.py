@@ -17,6 +17,7 @@ from exavatar_release_tpu.avatar.config import AvatarConfig as JCfg
 from exavatar_release_tpu_torch.avatar import scene as tsc
 from exavatar_release_tpu_torch.avatar.config import AvatarConfig as TCfg
 from exavatar_release_tpu_torch.avatar.convert import scene_from_jax
+from torch_port_fixture import fast_jit
 
 torch.set_num_threads(2)
 
@@ -24,6 +25,13 @@ C = 96
 PARAMS = ("mean", "scale", "rotation", "feature_dc", "feature_rest", "opacity")
 AUX = ("live", "radius_max", "xyz_grad_accum", "track_cnt", "active_sh_degree",
        "cam_dist_trans", "cam_dist_radius")
+
+
+# the JAX functions as one program each: run op by op they cost ~200 compiles
+_J = {"track_stats": fast_jit(jsc.track_stats, static_argnames=("img_shape",)),
+      "alloc_slots": fast_jit(jsc._alloc_slots),
+      "densify_and_prune": fast_jit(jsc.densify_and_prune, static_argnums=(2, 3)),
+      "reset_opacity": fast_jit(jsc.reset_opacity)}
 
 
 def _scene(seed, n_live, hot_share=0.5):
@@ -80,7 +88,7 @@ def test_track_stats(img_shape):
     g = rng.normal(0, 1e-4, (C, 2)).astype(np.float32)
     vis = rng.uniform(size=C) < 0.7
     radius = rng.uniform(0, 40, C).astype(np.float32)
-    want = jsc.track_stats(_j_state(params, aux), jnp.asarray(g), jnp.asarray(vis),
+    want = _J["track_stats"](_j_state(params, aux), jnp.asarray(g), jnp.asarray(vis),
                            jnp.asarray(radius), img_shape=img_shape)
     got = tsc.track_stats(_t_state(params, aux), torch.from_numpy(g), torch.from_numpy(vis),
                           torch.from_numpy(radius), img_shape=img_shape)
@@ -102,7 +110,7 @@ def test_alloc_slots_integers(n_free, n_want):
     free[rng.permutation(C)[:n_free]] = True
     want = np.zeros(3 * C, bool)
     want[rng.permutation(3 * C)[:n_want]] = True
-    j_slots, j_drop = jsc._alloc_slots(jnp.asarray(free), jnp.asarray(want))
+    j_slots, j_drop = _J["alloc_slots"](jnp.asarray(free), jnp.asarray(want))
     t_slots, t_drop = tsc._alloc_slots(torch.from_numpy(free), torch.from_numpy(want))
     assert t_slots.dtype == torch.int32
     np.testing.assert_array_equal(t_slots.numpy(), np.asarray(j_slots))
@@ -118,7 +126,7 @@ def test_densify_and_prune(case):
     params, aux = _scene(3, n_live, hot_share=0.8)
     key = jax.random.PRNGKey(7)
     eps = np.array(jax.random.normal(key, (2, C, 3)))
-    want = jsc.densify_and_prune(_j_state(params, aux), key, JCfg(), screen)
+    want = _J["densify_and_prune"](_j_state(params, aux), key, JCfg(), screen)
     got = tsc.densify_and_prune(_t_state(params, aux), TCfg(), screen,
                                 eps=torch.from_numpy(eps))
     for k in ("n_cloned", "n_split", "n_pruned", "n_dropped"):
@@ -146,7 +154,7 @@ def test_densify_draws_its_noise_from_the_generator():
 
 def test_reset_opacity():
     params, aux = _scene(4, 60)
-    want, j_mask = jsc.reset_opacity(_j_state(params, aux))
+    want, j_mask = _J["reset_opacity"](_j_state(params, aux))
     state = _t_state(params, aux)
     got, t_mask = tsc.reset_opacity(state)
     _assert_state(got, want)

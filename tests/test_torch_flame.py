@@ -10,6 +10,7 @@ import torch
 
 from exavatar_release_tpu.models.smplx import flame as jf
 from exavatar_release_tpu_torch.models.smplx import flame as tf
+from torch_port_fixture import fast_jit
 
 torch.set_num_threads(2)
 
@@ -35,6 +36,11 @@ def test_synthetic_assets_bit_for_bit(heads):
     assert tp.vertex_num == jp.vertex_num
 
 
+# the JAX forward as one program: run op by op it costs ~150 compiles
+_J_FLAME_FORWARD = fast_jit(jf.flame_forward, static_argnames=("with_landmarks",
+                                                                "use_face_contour"))
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_flame_forward_matches_jax(heads, seed):
     (ja, _), (ta, _) = heads
@@ -56,7 +62,7 @@ def test_flame_forward_matches_jax(heads, seed):
                {"face_offset": offset}):
         jkw = {**kw, "face_offset": jnp.asarray(offset)} if "face_offset" in kw else kw
         tkw = {**kw, "face_offset": torch.from_numpy(offset)} if "face_offset" in kw else kw
-        want = jf.flame_forward(ja, jparams, **jkw)
+        want = _J_FLAME_FORWARD(ja, jparams, **jkw)
         got = tf.flame_forward(ta, tparams, **tkw)
         for k in ("vertices", "joints", "landmarks", "v_shaped", "joints_zero_pose",
                   "rel_transforms"):

@@ -1,12 +1,20 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package (nor cv2, which the machine with the card lacks), and no module of
+package (nor cv2, which the avatar path does without), and no module of
 it (nor chip_smoke.py, nor kernel_ab.py) imports them or the JAX
-repository's tools/."""
+repository's tools/.
+
+The import checks run in one fresh interpreter (``imports``): it loads
+numpy and torch, the port's own dependencies, then forks a child per check,
+all at once, each of which imports its module (or modules) before any other
+module of the port and reports what it loaded."""
 import ast
 import glob
+import json
 import os.path as osp
 import subprocess
 import sys
+
+import pytest
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "exavatar_release_tpu", "tools")
@@ -54,10 +62,67 @@ def test_module_list_covers_the_train_modules():
     assert not missing, missing
 
 
-# the probe tools and the apps slice
+# the probe tools, the apps slice and the preprocessing apps (whose
+# detectors and file plumbing import cv2 only when they run)
 APPS_MODULES = ("tools.kvariants", "tools.win_probe", "data.colmap", "data.subject",
                 "native.loader", "utils.logging", "utils.png", "utils.vis", "apps.common",
-                "apps.train", "apps.test", "apps.evaluate", "apps.animate")
+                "apps.train", "apps.test", "apps.evaluate", "apps.animate",
+                "core.geometry", "data.fitting_init", "data.depth_cloud", "apps.extract_frames",
+                "apps.prepare_fit_pose_to_test", "apps.run_mmpose", "apps.run_sam",
+                "apps.run_depth_anything", "apps.preprocess")
+TRAIN_ALONE = ("train.optim", "train.checkpoint", "apps.train", "avatar.convert")
+
+_FORK_CHECKS = """
+import importlib, json, os, sys
+import numpy, torch  # the port's own dependencies, loaded once
+checks = json.loads(sys.argv[1])
+kids = {}
+for name, mods in checks.items():  # all children at once
+    r, w = os.pipe()
+    pid = os.fork()
+    if pid == 0:  # the child: the modules first, then what got loaded
+        os.close(r)
+        try:
+            for m in mods:
+                importlib.import_module("exavatar_release_tpu_torch" + ("." + m if m else ""))
+            msg = sorted({k.split(".")[0] for k in sys.modules})
+        except BaseException as e:
+            msg = "error: " + repr(e)
+        os.write(w, json.dumps(msg).encode())
+        os._exit(0)
+    os.close(w)
+    kids[name] = (pid, r)
+out = {}
+for name, (pid, r) in kids.items():
+    data = b""
+    while True:
+        chunk = os.read(r, 1 << 16)
+        if not chunk:
+            break
+        data += chunk
+    os.close(r)
+    os.waitpid(pid, 0)
+    out[name] = json.loads(data)
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def imports():
+    """{check: the top-level modules loaded, or "error: ..."}: each module of
+    APPS_MODULES and TRAIN_ALONE alone, and "all": the package and every
+    module of it."""
+    checks = {m: [m] for m in APPS_MODULES + TRAIN_ALONE}
+    checks["all"] = [""] + _port_modules()
+    r = subprocess.run([sys.executable, "-c", _FORK_CHECKS, json.dumps(checks)], cwd=REPO,
+                       check=True, timeout=300, capture_output=True, text=True)
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _loaded(imports, check, forbidden):
+    got = imports[check]
+    assert not isinstance(got, str), (check, got)
+    return [m for m in got if m in forbidden]
 
 
 def test_module_list_covers_the_apps_modules():
@@ -66,15 +131,9 @@ def test_module_list_covers_the_apps_modules():
     assert not missing, missing
 
 
-def test_each_apps_module_imports_alone_without_jax_or_cv2():
-    code = (
-        "import sys, importlib\n"
-        "importlib.import_module('exavatar_release_tpu_torch.' + sys.argv[1])\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in %r + ('cv2',)]\n"
-        "assert not bad, bad\n" % (FORBIDDEN,)
-    )
-    for m in APPS_MODULES:
-        subprocess.run([sys.executable, "-c", code, m], cwd=REPO, check=True, timeout=120)
+def test_each_apps_module_imports_alone_without_jax_or_cv2(imports):
+    bad = {m: _loaded(imports, m, FORBIDDEN + ("cv2",)) for m in APPS_MODULES}
+    assert not any(bad.values()), bad
 
 
 # the fitting half and its two CLIs, which import cv2 only for the check renders
@@ -92,17 +151,11 @@ def test_module_list_covers_the_fitting_modules():
     assert not missing, missing
 
 
-def test_each_train_module_imports_alone_without_jax():
+def test_each_train_module_imports_alone_without_jax(imports):
     """Every new module in a clean process of its own: importing it first
     (before any other module of the port) must work and load no JAX."""
-    code = (
-        "import sys, importlib\n"
-        "importlib.import_module('exavatar_release_tpu_torch.' + sys.argv[1])\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
-        "assert not bad, bad\n" % (FORBIDDEN,)
-    )
-    for m in ("train.optim", "train.checkpoint", "apps.train", "avatar.convert"):
-        subprocess.run([sys.executable, "-c", code, m], cwd=REPO, check=True, timeout=120)
+    bad = {m: _loaded(imports, m, FORBIDDEN) for m in TRAIN_ALONE}
+    assert not any(bad.values()), bad
 
 
 def _imported_roots(path):
@@ -123,13 +176,5 @@ def test_no_jax_import_in_source():
     assert not bad, bad
 
 
-def test_import_leaves_jax_unloaded():
-    code = (
-        "import sys, exavatar_release_tpu_torch\n"
-        "import importlib\n"
-        "for m in %r:\n"
-        "    importlib.import_module('exavatar_release_tpu_torch.' + m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in %r + ('cv2', 'triton')]\n"
-        "assert not bad, bad\n" % (_port_modules(), FORBIDDEN)
-    )
-    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+def test_import_leaves_jax_unloaded(imports):
+    assert not _loaded(imports, "all", FORBIDDEN + ("cv2", "triton"))

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
+from torch_port_fixture import FAST_COMPILE
 from torch_windows import windows
 
 torch.set_num_threads(2)
@@ -126,8 +127,8 @@ def test_scene_terminates_pixels(scene):
 def test_fwd_variant_vs_jax(kv, scene, variant):
     s = scene
     run = kv.build_fwd(T, K, P, *TILE, CHUNK, **JAX_FWD[variant])
-    want = [np.asarray(x) for x in run(jnp.asarray(s["counts"]), jnp.asarray(s["quad"]),
-                                       jnp.asarray(s["color"]), jnp.asarray(s["origins"]))]
+    args = [jnp.asarray(s[k]) for k in ("counts", "quad", "color", "origins")]
+    want = [np.asarray(x) for x in run.lower(*args).compile(compiler_options=FAST_COMPILE)(*args)]
     got = _port_fwd(variant, s)
     for g, w in zip(got, want):
         assert g.shape == w.shape
@@ -138,10 +139,9 @@ def test_fwd_variant_vs_jax(kv, scene, variant):
 def test_bwd_variant_vs_jax(kv, scene, variant):
     s = scene
     run = kv.build_bwd(T, K, P, *TILE, CHUNK, **JAX_BWD[variant])
-    j = jnp.asarray
-    want = [np.asarray(x) for x in run(j(s["counts"]), j(s["quad"]), j(s["color"]),
-                                       j(s["g_accum"]), j(s["g_tfinal"]), j(s["atot"]),
-                                       j(s["origins"]))]
+    args = [jnp.asarray(s[k]) for k in ("counts", "quad", "color", "g_accum", "g_tfinal", "atot",
+                                        "origins")]
+    want = [np.asarray(x) for x in run.lower(*args).compile(compiler_options=FAST_COMPILE)(*args)]
     got = _port_bwd(variant, s)
     for g, w in zip(got, want):
         assert g.shape == w.shape

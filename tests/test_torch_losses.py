@@ -15,6 +15,7 @@ from exavatar_release_tpu_torch.avatar import losses as tl
 from exavatar_release_tpu_torch.avatar.convert import lpips_params_from_jax
 from exavatar_release_tpu_torch.ops import image_metrics as tim
 from exavatar_release_tpu_torch.ops import lpips as tlp
+from torch_frame_fixture import fast_jit
 
 torch.set_num_threads(2)
 RTOL = 1e-4
@@ -78,6 +79,12 @@ def test_image_losses(imgs):
            jl.ssim_loss(J(a), J(b), mul_mask=J(1 - fg)))
 
 
+# jitted: run op by op, the JAX initialiser and distance cost ~200 small compiles
+_j_lpips_random = fast_jit(jlp.init_lpips_random, static_argnums=(1,))
+_j_lpips_distance = fast_jit(jlp.lpips_distance)
+_j_lpips_loss = fast_jit(jl.lpips_loss)
+
+
 @pytest.mark.parametrize("net", ["vgg", "alex"])
 def test_lpips_distance(imgs, net, tmp_path):
     a, b, _, bbox, shape = imgs
@@ -87,25 +94,25 @@ def test_lpips_distance(imgs, net, tmp_path):
         a = rng.uniform(0, 1, (3,) + shape).astype(np.float32)
         b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
         bbox = np.asarray([20.3, 10.1, 50.0, 48.8], np.float32)
-    jp = jlp.init_lpips_random(jax.random.PRNGKey(1), net)
+    jp = _j_lpips_random(jax.random.PRNGKey(1), net)
     npy = lambda xs: [np.asarray(x) for x in xs]
     tp = lpips_params_from_jax(npy(jp.conv_weights), npy(jp.conv_biases), npy(jp.lin_weights),
                                jp.net, device="cpu")
     region = np.asarray(jim.bbox_mask(shape, J(bbox)))
     a2, b2 = a * 2 - 1, b * 2 - 1
-    want = float(jlp.lpips_distance(jp, J(a2), J(b2)))
+    want = float(_j_lpips_distance(jp, J(a2), J(b2)))
     assert want > 0
     _close(tlp.lpips_distance(tp, T(a2), T(b2)), want)
     _close(tlp.lpips_distance(tp, T(a2), T(b2), mask=T(region)),
-           jlp.lpips_distance(jp, J(a2), J(b2), mask=J(region)))
-    _close(tl.lpips_loss(tp, T(a), T(b), T(region)), jl.lpips_loss(jp, J(a), J(b), J(region)))
+           _j_lpips_distance(jp, J(a2), J(b2), mask=J(region)))
+    _close(tl.lpips_loss(tp, T(a), T(b), T(region)), _j_lpips_loss(jp, J(a), J(b), J(region)))
     # the .npz layout is shared: what the JAX package saves, the port loads
     jlp.save_lpips(str(tmp_path / "j.npz"), jp)
     loaded = tlp.load_lpips(str(tmp_path / "j.npz"), device="cpu")
     assert loaded.net == net
     _close(tlp.lpips_distance(loaded, T(a2), T(b2)), want)
     tlp.save_lpips(str(tmp_path / "t.npz"), tp)
-    _close(jlp.lpips_distance(jlp.load_lpips(str(tmp_path / "t.npz")), J(a2), J(b2)), want)
+    _close(_j_lpips_distance(jlp.load_lpips(str(tmp_path / "t.npz")), J(a2), J(b2)), want)
 
 
 @pytest.fixture(scope="module")
@@ -169,7 +176,7 @@ def test_hand_and_arm_regs(body):
         t_args[wrt] = t_args[wrt].clone().requires_grad_(True)
         val = fn_t(*t_args)
         val.backward()
-        jval, jg = jax.value_and_grad(fn_j, argnums=wrt)(*j_args)
+        jval, jg = fast_jit(jax.value_and_grad(fn_j, argnums=wrt))(*j_args)
         _close(val, jval)
         assert np.isfinite(t_args[wrt].grad.numpy()).all()
         s = max(float(np.abs(np.asarray(jg)).max()), 1e-12)

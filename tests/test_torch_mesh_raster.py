@@ -12,6 +12,7 @@ from exavatar_release_tpu.ops import mesh_raster as jm
 from exavatar_release_tpu.ops.rasterizer import binning as jb
 from exavatar_release_tpu_torch.ops import mesh_raster as tm
 from exavatar_release_tpu_torch.ops.rasterizer import binning as tb
+from torch_frame_fixture import fast_jit
 
 torch.set_num_threads(2)
 ATOL = 1e-5
@@ -39,8 +40,9 @@ def mesh():
     H, W = 40, 72
     focal = np.asarray([70.0, 70.0], np.float32)
     princpt = np.asarray([W / 2.0, H / 2.0], np.float32)
-    want = jm.rasterize_mesh(jnp.asarray(verts), jnp.asarray(faces), jnp.asarray(focal),
-                             jnp.asarray(princpt), (H, W), max_per_tile=256)
+    want = fast_jit(jm.rasterize_mesh, static_argnums=(4,), static_argnames=("max_per_tile",))(
+        jnp.asarray(verts), jnp.asarray(faces), jnp.asarray(focal), jnp.asarray(princpt), (H, W),
+        max_per_tile=256)
     return verts, faces, focal, princpt, (H, W), want
 
 
@@ -104,8 +106,8 @@ def test_render_textured_mesh_and_grads(mesh):
                                       max_per_tile=256)
         return jnp.sum(img * wgt), img
 
-    (_, want), (g_uv, g_v) = jax.value_and_grad(j_loss, argnums=(0, 1), has_aux=True)(
-        jnp.asarray(uvmap), jnp.asarray(verts))
+    vg = fast_jit(jax.value_and_grad(j_loss, argnums=(0, 1), has_aux=True))
+    (_, want), (g_uv, g_v) = vg(jnp.asarray(uvmap), jnp.asarray(verts))
     tu = torch.from_numpy(uvmap).requires_grad_(True)
     tv = torch.from_numpy(verts).requires_grad_(True)
     got = tm.render_textured_mesh(tu, tv, *map(torch.from_numpy, (faces, R, t, focal, princpt)),

@@ -866,8 +866,27 @@ VARIANT_CASES = ([f"fwd/{v}" for v in kn.FWD_VARIANTS]
                  + [f"bwd/{v}" for v in kn.BWD_VARIANTS if v != "nograd"])
 
 
+@pytest.fixture(scope="module")
+def chunk_edge_inputs():
+    """Per tile shape, (f)'s windows as global conic rows with their plain
+    forward and the patch misses of each first chunk's last row: the same
+    inputs for every variant."""
+    from torch_windows import chunk_edge_windows
+
+    out = []
+    for tile, T, seed in (((32, 128), 2, 41), ((20, 36), 4, 42)):
+        win, counts, origins = map(torch.from_numpy, chunk_edge_windows(
+            np.random.default_rng(seed), T=T, tile_shape=tile))
+        rows_g, _, color = chip_smoke.rm_rows_from_windows(win, origins)
+        f = kn.composite_rm_plain_with_visits(rows_g, color, counts, tile, origins)
+        box = kn.row_pixel_box(rows_g[:, 255:256].permute(2, 0, 1))
+        miss = chip_smoke.patch_misses(box, chip_smoke.pair_layout(tile).bounds, origins)
+        out.append((tile, T, seed, rows_g, color, counts, origins, f, miss))
+    return out
+
+
 @pytest.mark.parametrize("case", VARIANT_CASES)
-def test_variant_schedule_is_the_plain_version(case):
+def test_variant_schedule_is_the_plain_version(case, chunk_edge_inputs):
     """The stage probes' schedule (``_schedule_rm`` with origins under a
     variant: the cull and the gate wherever the variant keeps them, its
     hooks' blend or replay, its warp sums) on windows where the cull meets
@@ -878,19 +897,11 @@ def test_variant_schedule_is_the_plain_version(case):
     bit-equal to ``composite_tiles_fwd_variant_plain``, the backward within
     1e-6 of each row's largest value of ``composite_tiles_bwd_variant_plain``
     (the warps sum in another order than the plain version)."""
-    from torch_windows import chunk_edge_windows
-
     d, variant = case.split("/")
-    for tile, T, seed in (((32, 128), 2, 41), ((20, 36), 4, 42)):
-        win, counts, origins = map(torch.from_numpy, chunk_edge_windows(
-            np.random.default_rng(seed), T=T, tile_shape=tile))
-        rows_g, _, color = chip_smoke.rm_rows_from_windows(win, origins)
-        f = kn.composite_rm_plain_with_visits(rows_g, color, counts, tile, origins)
+    for tile, T, seed, rows_g, color, counts, origins, f, miss in chunk_edge_inputs:
         # the inputs bite: pixels end inside the first chunk, and the box of
         # each first chunk's last row misses most patches
         assert float((f[2] < 256).float().mean()) > 0.1, tile
-        box = kn.row_pixel_box(rows_g[:, 255:256].permute(2, 0, 1))
-        miss = chip_smoke.patch_misses(box, chip_smoke.pair_layout(tile).bounds, origins)
         assert float(miss.float().mean()) > 0.8, tile
         if d == "fwd":
             (acc, tf), culled, gated = _schedule_rm(rows_g, color, counts, tile, origins,

@@ -33,6 +33,7 @@ from exavatar_release_tpu.ops.rasterizer import rasterize as j_rasterize
 from exavatar_release_tpu_torch.core.camera import Camera as TCamera
 from exavatar_release_tpu_torch.ops.rasterizer import RasterizeSettings, rasterize
 from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
+from torch_frame_fixture import fast_jit
 from torch_windows import ragged, windows
 
 torch.set_num_threads(2)
@@ -261,7 +262,7 @@ def test_mean2d_offset_forward_and_grad():
         return (jnp.sum(r["img"] * wimg) + jnp.sum(r["depth"] * wd)
                 + jnp.sum(r["mask"] * wd.T.reshape(H, W))), r
 
-    (_, want), g_want = jax.value_and_grad(j_loss, has_aux=True)(jnp.asarray(off))
+    (_, want), g_want = fast_jit(jax.value_and_grad(j_loss, has_aux=True))(jnp.asarray(off))
     to = torch.from_numpy(off).requires_grad_(True)
     got = rasterize(*(torch.from_numpy(d[k]) for k in keys), cam, shape,
                     torch.from_numpy(d["bg"]), RasterizeSettings(backend="ref", **_BASE),

@@ -30,6 +30,7 @@ from exavatar_release_tpu_torch.core.camera import Camera as TCamera
 from exavatar_release_tpu_torch.ops.rasterizer import RasterizeSettings, api, rasterize
 from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
 from exavatar_release_tpu_torch.ops.rasterizer.preprocess import pack_tile_quads
+from torch_frame_fixture import fast_jit
 from torch_windows import windows
 
 torch.set_num_threads(2)
@@ -200,8 +201,8 @@ def renders():
                         jnp.zeros(3), js)
         return jnp.sum(r["img"] ** 2) + jnp.sum(r["mask"]) + jnp.sum(r["depth"]), r
 
-    (_, j_r), j_g = jax.value_and_grad(loss, argnums=(0, 1, 2, 3, 4), has_aux=True)(
-        *(j(d[k]) for k in NAMES))
+    vg = fast_jit(jax.value_and_grad(loss, argnums=(0, 1, 2, 3, 4), has_aux=True))
+    (_, j_r), j_g = vg(*(j(d[k]) for k in NAMES))
     port = {kv: _t_render(d, cam, shape, RasterizeSettings(max_per_tile=64, kernel_v=kv))
             for kv in (1, 2)}
     return d, cam, shape, j_r, j_g, port

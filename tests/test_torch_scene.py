@@ -22,6 +22,7 @@ from exavatar_release_tpu_torch.avatar.gaussians import concat_assets, detach_as
 from exavatar_release_tpu_torch.avatar.param_dict import init_param_frames as t_init_param_frames
 from exavatar_release_tpu_torch.core import sh as tsh
 from exavatar_release_tpu_torch.ops.knn import mean_knn_dist_sq as t_mean_knn
+from torch_frame_fixture import fast_jit
 
 torch.set_num_threads(2)
 ATOL = 1e-5
@@ -38,8 +39,8 @@ def cloud():
     xyz = np.stack([rng.uniform(-3, 3, n), rng.uniform(-1.5, 2, n), rng.uniform(3, 5, n)],
                    1).astype(np.float32)
     rgb = rng.uniform(0, 1, (n, 3)).astype(np.float32)
-    state = jsc.init_from_point_cloud(jnp.asarray(xyz), jnp.asarray(rgb), jnp.zeros(3),
-                                      jnp.asarray(3.0), 256)
+    state = fast_jit(jsc.init_from_point_cloud, static_argnums=(4,))(
+        jnp.asarray(xyz), jnp.asarray(rgb), jnp.zeros(3), jnp.asarray(3.0), 256)
     return xyz, rgb, state
 
 
@@ -120,7 +121,7 @@ def test_scene_assets(cloud, deg):
     aux = state.aux.replace(active_sh_degree=jnp.asarray(deg))
     R = np.asarray(jax.random.orthogonal(jax.random.PRNGKey(0), 3), np.float32)
     t = np.asarray([0.1, -0.2, 0.5], np.float32)
-    want = jsc.scene_assets(jsc.SceneState(p, aux), jnp.asarray(R), jnp.asarray(t))
+    want = fast_jit(jsc.scene_assets)(jsc.SceneState(p, aux), jnp.asarray(R), jnp.asarray(t))
     tp, ta = scene_from_jax(_fields(p), _fields(aux), device="cpu")
     got = tsc.scene_assets(tsc.SceneState(tp, ta), torch.from_numpy(R), torch.from_numpy(t))
     for k in ("mean_3d", "opacity", "scale", "rotation", "rgb"):
@@ -170,7 +171,7 @@ def test_param_frames_store_and_lookup():
          "expr": rng.normal(0, 0.5, 4), "trans": rng.normal(0, 1, 3)}
         for _ in range(3)
     ]
-    want = j_init_param_frames(frames)
+    want = fast_jit(lambda: j_init_param_frames(frames))()  # the poses enter as constants
     got = t_init_param_frames(frames, device="cpu")
     assert got.num_frames == want.num_frames == 3
     assert len(list(got.parameters())) == 9
@@ -178,7 +179,7 @@ def test_param_frames_store_and_lookup():
         g = getattr(got, k).detach().numpy()
         assert g.shape == w.shape, k
         np.testing.assert_allclose(g, w, atol=ATOL, err_msg=k)
-    jp, tp = want.lookup(1), got.lookup(1)
+    jp, tp = fast_jit(lambda pf: pf.lookup(1))(want), got.lookup(1)
     for k, w in _fields(jp).items():
         np.testing.assert_allclose(getattr(tp, k).detach().numpy(), w, atol=ATOL, err_msg=k)
     # a lookup is differentiable back to its own row only

@@ -19,6 +19,7 @@ from exavatar_release_tpu_torch.models.smplx import SMPLXParams as TParams
 from exavatar_release_tpu_torch.models.smplx import build_prior as t_build_prior
 from exavatar_release_tpu_torch.models.smplx import smplx_forward as t_forward
 from exavatar_release_tpu_torch.models.smplx import synthetic_smplx_assets as t_assets
+from torch_port_fixture import fast_jit
 
 torch.set_num_threads(2)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -112,8 +113,9 @@ def test_smplx_forward(assets, rng):
     off = {k: rng.normal(0, 0.01, s).astype(np.float32)
            for k, s in (("face_offset", (V, 3)), ("joint_offset", (J, 3)),
                         ("locator_offset", (J, 3)))}
-    jo = j_forward(ja, JParams(**{k: jnp.asarray(v) for k, v in p.items()}),
-                   **{k: jnp.asarray(v) for k, v in off.items()})
+    jo = fast_jit(lambda p_, off_: j_forward(ja, p_, **off_))(
+        JParams(**{k: jnp.asarray(v) for k, v in p.items()}),
+        {k: jnp.asarray(v) for k, v in off.items()})
     to = t_forward(ta, TParams(**{k: torch.from_numpy(v) for k, v in p.items()}),
                    **{k: torch.from_numpy(v) for k, v in off.items()})
     for f in ("vertices", "joints", "landmarks", "v_shaped", "joints_zero_pose",

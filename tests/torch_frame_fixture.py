@@ -28,33 +28,29 @@ from exavatar_release_tpu_torch.models.smplx import build_prior as t_build_prior
 from exavatar_release_tpu_torch.models.smplx import synthetic_smplx_assets as t_assets
 from exavatar_release_tpu_torch.ops.rasterizer.api import RasterizeSettings as TSettings
 from exavatar_release_tpu_torch.train.loop import ModelBundle as TBundle
-from torch_port_fixture import _j_init_human, _last_layer
+from torch_port_fixture import FAST_COMPILE, _j_init_human, _last_layer, fast_jit
 
 BG = np.asarray([0.3, 0.6, 0.9], np.float32)
 
 
-def _jitted_avatar_setup(**kw):
+def _jitted_avatar_setup(init_human=_j_init_human, **kw):
     """``AvatarSetup`` with its big eager initialisers jitted: run op by op
-    they cost ~400 small XLA compiles (30 s); the values are the same."""
+    they cost ~400 small XLA compiles (30 s). ``init_human``: the jitted
+    initialiser of the human's weights."""
     names = ("init_human", "init_lpips_random", "init_param_frames", "sc")
     eager = {n: getattr(avatar_fixture, n) for n in names}
-    avatar_fixture.init_human = _j_init_human
-    avatar_fixture.init_lpips_random = jax.jit(eager["init_lpips_random"], static_argnums=(1,))
+    avatar_fixture.init_human = init_human
+    avatar_fixture.init_lpips_random = fast_jit(eager["init_lpips_random"], static_argnums=(1,))
     # its numpy stacking needs concrete poses: they enter as constants
-    avatar_fixture.init_param_frames = lambda frames: jax.jit(
+    avatar_fixture.init_param_frames = lambda frames: fast_jit(
         lambda: eager["init_param_frames"](frames))()
-    avatar_fixture.sc = types.SimpleNamespace(init_from_point_cloud=jax.jit(
+    avatar_fixture.sc = types.SimpleNamespace(init_from_point_cloud=fast_jit(
         eager["sc"].init_from_point_cloud, static_argnums=(4,)))
     try:
         return AvatarSetup(**kw)
     finally:
         for n, f in eager.items():
             setattr(avatar_fixture, n, f)
-
-
-# XLA options for the tests' big one-shot programs: they run once at a tiny
-# size, so LLVM's optimisation passes cost more than they save
-FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 
 def compile_once(fn, *args):

@@ -32,9 +32,20 @@ from exavatar_release_tpu_torch.models.smplx import synthetic_smplx_assets as t_
 ASSET_KW = dict(rings=8, segs=12, num_shape=6, num_expr=4)
 CFG_KW = dict(triplane_ch=8, triplane_res=16)
 
+# XLA options for the tests' one-shot programs: they run once at a tiny size,
+# so LLVM's optimisation passes cost more than they save
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def fast_jit(fn, **kw):
+    """``jax.jit(fn, **kw)`` compiled with ``FAST_COMPILE``: one program for a
+    reference that would cost a compile per operation run op by op."""
+    return jax.jit(fn, compiler_options=FAST_COMPILE, **kw)
+
+
 # jit: one compile instead of eager JAX's many small ones
-_j_init_human = jax.jit(init_human, static_argnums=(3,))
-_j_human_forward = jax.jit(human_forward, static_argnums=(7,))
+_j_init_human = fast_jit(init_human, static_argnums=(3,))
+_j_human_forward = fast_jit(human_forward, static_argnums=(7,))
 
 
 def numpy_pose(rng, num_expr):
