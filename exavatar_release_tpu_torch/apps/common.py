@@ -38,12 +38,6 @@ from ..ops.lpips import init_lpips_random, load_lpips
 from ..train.loop import ModelBundle
 
 
-def refuse(flag: str, queue: str) -> None:
-    """Stop on a flag whose machinery is not ported yet."""
-    raise SystemExit(f"{flag} is not supported by the PyTorch port yet: it waits for "
-                     f"ROADMAP.md {queue}")
-
-
 def resolve_lpips(lpips_weights: Optional[str], net: str = "vgg", quiet: bool = False,
                   device="cuda"):
     """Load LPIPS weights converted to the ``.npz`` layout, or fall back LOUDLY

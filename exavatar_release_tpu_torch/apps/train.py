@@ -4,6 +4,8 @@ exavatar_release_tpu/apps/train.py).
     python -m exavatar_release_tpu_torch.apps.train --subject_root <dir>
         [--fit_pose_to_test] [--continue_train] [--epochs N] [--out_dir <dir>]
         [--loader auto|native|python] [--device cuda|cpu] ...
+    torchrun --nproc_per_node=N -m exavatar_release_tpu_torch.apps.train
+        --mesh data=a,tile=b [--gaussian_shard] ...   (N = a*b)
 
 ``main`` loads the subject, builds the model on ``--device`` and runs
 ``train_loop``: epochs of ``train_step`` + ``maybe_adjust_gaussians`` under the
@@ -11,7 +13,11 @@ capacity governor, frames decoded per step in the epoch's order (the native
 prefetcher or cv2, ``--loader``), a ``speed: total(step r read)`` log line per
 step and a snapshot per epoch. ``--profile_dir`` traces iterations 20-40
 with ``torch.profiler`` into ``<profile_dir>/trace.json`` (a Chrome trace).
-``--mesh`` and ``--gaussian_shard`` wait for ``parallel/``; each is refused.
+``--mesh data=a,tile=b`` trains on a process mesh under ``torchrun`` (a*b
+processes, one card each): each step takes ``a`` frames, one per data
+group, through ``parallel.dp_tile_train_step``, every render split into
+``b`` row bands (with ``--gaussian_shard`` its Gaussians too); rank 0 alone
+writes the log and the snapshots.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from ..train.loop import (
     maybe_adjust_gaussians,
     train_step,
 )
+from ..parallel import dp_tile_train_step
 from ..train.optim import GroupAdam
 from ..utils.logging import Timer
 from ..utils.profiling import TRACE_FILE, trace
@@ -108,6 +115,7 @@ def train_loop(
     seed: int = 0,
     log: Optional[Callable[[str], None]] = None,
     profile_dir: Optional[str] = None,
+    mesh=None,
 ) -> TrainResult:
     """Epochs ``start .. cfg.end_epoch`` over ``frames`` (FrameData already on
     the device, or a source with ``len`` and ``epoch(order)`` such as
@@ -124,11 +132,22 @@ def train_loop(
     and the log line the trainer's ``speed: total(step r read)`` averages of
     the JAX package's Timer (the first ten steps are left out). With
     ``profile_dir`` the iterations ``PROFILE_ITRS`` run under
-    ``utils.profiling.trace``, which writes ``profile_dir/trace.json``."""
+    ``utils.profiling.trace``, which writes ``profile_dir/trace.json``.
+
+    With ``mesh`` (a ``ProcessMesh`` ("data", "tile"), this process one
+    rank of it) a step consumes one frame per data group: the epoch's order
+    is cut into batches of ``mesh.shape["data"]`` frames (the tail shorter
+    than that is dropped), this rank decodes only its data group's frames,
+    and ``parallel.dp_tile_train_step`` takes the batch with backgrounds
+    drawn for all of it, the same on every rank. Only rank 0 writes
+    snapshots and traces."""
     log = log or (lambda msg: None)
     dev = state.trainables.scene.mean.device
     source = frames if hasattr(frames, "epoch") else _FramesInMemory(frames)
-    itr_per_epoch = len(source)
+    d_data = 1 if mesh is None else mesh.shape["data"]
+    r_data = 0 if mesh is None else mesh.index("data")
+    writer = mesh is None or torch.distributed.get_rank() == 0
+    itr_per_epoch = len(source) // d_data
     start_epoch = 0
     if continue_train and model_dir is not None:
         ck = latest_checkpoint(model_dir)
@@ -147,22 +166,32 @@ def train_loop(
     # the trace of PROFILE_ITRS, closed also when the run ends inside them
     with contextlib.ExitStack() as profiling:
         for epoch in range(start_epoch, cfg.end_epoch):
-            order = rng.permutation(itr_per_epoch)
+            order = rng.permutation(len(source))[:itr_per_epoch * d_data]
             tot_timer.tic()
             read_timer.tic()
-            epoch_frames = source.epoch(order)
-            for itr, k in enumerate(order):
+            # this rank's frame of every batch of d_data consecutive ones
+            epoch_frames = source.epoch(order[r_data::d_data])
+            for itr, k in enumerate(order[r_data::d_data]):
                 frame = next(epoch_frames)
                 read_timer.toc()
-                if profile_dir is not None and cur_itr == PROFILE_ITRS[0]:
+                if writer and profile_dir is not None and cur_itr == PROFILE_ITRS[0]:
                     profiling.enter_context(trace(profile_dir))
-                if profile_dir is not None and cur_itr == PROFILE_ITRS[1]:
+                if writer and profile_dir is not None and cur_itr == PROFILE_ITRS[1]:
                     profiling.close()
                     log(f"profiler trace written to {osp.join(profile_dir, TRACE_FILE)}")
                 gpu_timer.tic()
-                state, losses = train_step(
-                    state, bundle, frame, optimizer, cfg, is_warmup=cfg.is_warmup(cur_itr),
-                    fit_pose_to_test=fit_pose_to_test, settings=settings, generator=gen)
+                if mesh is None:
+                    state, losses = train_step(
+                        state, bundle, frame, optimizer, cfg, is_warmup=cfg.is_warmup(cur_itr),
+                        fit_pose_to_test=fit_pose_to_test, settings=settings, generator=gen)
+                else:
+                    batch = [None] * d_data
+                    batch[r_data] = frame
+                    bgs = torch.rand(d_data, 3, generator=gen, device=dev)
+                    state, losses = dp_tile_train_step(
+                        state, bundle, batch, bgs, optimizer, cfg, mesh,
+                        is_warmup=cfg.is_warmup(cur_itr), fit_pose_to_test=fit_pose_to_test,
+                        settings=settings)
                 state, dstats = maybe_adjust_gaussians(state, cur_itr, cfg, fit_pose_to_test,
                                                        generator=gen)
                 # one transfer for the whole dict: the governor needs the counters
@@ -191,7 +220,7 @@ def train_loop(
                 cur_itr += 1
                 if max_itrs is not None and cur_itr >= max_itrs:
                     break
-            if model_dir is not None:
+            if model_dir is not None and writer:
                 save_checkpoint(model_dir, state, epoch)
                 log(f"saved snapshot_{epoch}")
             if max_itrs is not None and cur_itr >= max_itrs:
@@ -201,8 +230,9 @@ def train_loop(
 
 def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     """The training CLI; returns the loop's result."""
-    from .common import (add_common_args, build_prior_for, face_mesh_for, refuse,
-                         settings_from_args, subject_bundle)
+    from ..parallel import replicate_to_mesh, resolve_exchange_cap
+    from .common import (add_common_args, build_prior_for, face_mesh_for, settings_from_args,
+                         subject_bundle)
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_common_args(ap)
@@ -222,16 +252,20 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     ap.add_argument("--loader", default="auto", choices=["auto", "native", "python"],
                     help="frame decode pipeline: the native C++ prefetcher or cv2")
     ap.add_argument("--gaussian_shard", action="store_true",
-                    help="not ported: waits for parallel/")
+                    help="with --mesh tile>1: shard the Gaussians over the tile axis too "
+                         "(all_to_all band exchange; per-rank projection and binning N/D)")
     ap.add_argument("--max_itrs", type=int, default=None, help="debug cap")
     ap.add_argument("--profile_dir", default=None,
                     help="trace iterations 20-40 with torch.profiler into <dir>/trace.json")
-    ap.add_argument("--mesh", default=None, help="not ported: waits for parallel/")
+    ap.add_argument("--mesh", default=None,
+                    help="process mesh 'data=a,tile=b' under torchrun (a*b processes): data "
+                         "parallel over frames x row-band-sharded rendering "
+                         "(parallel.dp_tile_train_step); each step takes a frames")
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        refuse("--mesh", "Queue 1 item 5 (parallel/ on torch.distributed)")
-    if args.gaussian_shard:
-        refuse("--gaussian_shard", "Queue 1 item 5 (parallel/ on torch.distributed)")
+    mesh = process_mesh(args.mesh, args.device) if args.mesh is not None else None
+    if args.gaussian_shard and mesh is None:
+        raise SystemExit("--gaussian_shard shards the renders over the tile axis of --mesh: "
+                         "give --mesh data=a,tile=b")
 
     from ..data.subject import load_subject
     from ..native import build_error, native_available
@@ -239,7 +273,7 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     from ..train.optim import make_optimizer
     from ..utils.logging import make_logger
 
-    dev = torch.device(args.device)
+    dev = torch.device(args.device) if mesh is None else mesh.device
     cfg = AvatarConfig(scene_capacity=args.scene_capacity, triplane_ch=args.triplane_ch,
                        triplane_res=args.triplane_res)
     if args.epochs is not None:
@@ -256,7 +290,9 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
         raise SystemExit(f"--loader native: the native loader could not be built: "
                          f"{build_error()}")
 
-    logger = make_logger(osp.join(args.out_dir, "log"), "train_logs.txt")
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+    logger = (make_logger(osp.join(args.out_dir, "log"), "train_logs.txt") if rank0
+              else _Silent())
     subject = load_subject(args.subject_root,
                            split="test" if args.fit_pose_to_test else "train", repeat=args.repeat)
     prior = build_prior_for(args.human_model_path, args.gender, dev)
@@ -264,18 +300,62 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
     trainables, scene_state, bundle, frame_row_of = subject_bundle(
         subject, prior, cfg, flame_faces, vertex_uv, face_uv, args.lpips_weights,
         use_cv2=not use_native)
-    tot_itr = cfg.end_epoch * len(subject.frame_ids)
+    d_data = 1 if mesh is None else mesh.shape["data"]
+    tot_itr = cfg.end_epoch * (len(subject.frame_ids) // d_data)
     opt = make_optimizer(trainables, cfg, float(subject.cam_dist_radius), tot_itr,
                          fit_pose_to_test=args.fit_pose_to_test)
     state = init_train_state(trainables, scene_state.aux, opt)
-    governor = RasterCapacityGovernor(settings_from_args(args), log=logger.info)
+    settings = dataclasses.replace(settings_from_args(args), gaussian_shard=args.gaussian_shard)
+    xcap_floor = 512
+    if mesh is not None:
+        replicate_to_mesh(state, mesh)
+        d_tile = mesh.shape["tile"]
+        logger.info(f"mesh: data={d_data} x tile={d_tile} over {d_data * d_tile} processes; "
+                    f"{d_data} frames per step")
+        if args.gaussian_shard and d_tile > 1:
+            # the largest render is scene + human: growth of the exchange's
+            # capacity starts from its automatic value
+            n_max = int(state.trainables.scene.mean.shape[0]) + int(prior.vertex_num_upsampled)
+            xcap_floor = resolve_exchange_cap(n_max, d_tile)
+    governor = RasterCapacityGovernor(settings, log=logger.info, exchange_cap_floor=xcap_floor)
     logger.info(f"device {dev}; frame loader: "
                 + ("the native C++ prefetcher" if use_native else "python (cv2)"))
     return train_loop(state, bundle, SubjectFrames(subject, frame_row_of, dev, use_native), opt,
                       cfg, governor=governor, fit_pose_to_test=args.fit_pose_to_test,
                       model_dir=osp.join(args.out_dir, "model_dump"),
                       continue_train=args.continue_train, max_itrs=args.max_itrs, seed=0,
-                      log=logger.info, profile_dir=args.profile_dir)
+                      log=logger.info, profile_dir=args.profile_dir, mesh=mesh)
+
+
+class _Silent:
+    """The logger of ranks other than 0."""
+
+    def info(self, msg: str) -> None:
+        pass
+
+
+def process_mesh(spec: str, device: str):
+    """The ``ProcessMesh`` of ``--mesh data=a,tile=b``: this process joins the
+    ``torch.distributed`` world that ``torchrun`` (or another launcher that
+    ``parallel.init_distributed`` reads) set up, which must hold a*b
+    processes."""
+    import torch.distributed as dist
+
+    from ..parallel import init_distributed, make_host_mesh
+
+    sizes = dict(kv.split("=") for kv in spec.split(","))
+    if set(sizes) - {"data", "tile"}:
+        raise SystemExit(f"--mesh {spec}: the axes are data and tile")
+    d_data, d_tile = int(sizes.get("data", 1)), int(sizes.get("tile", 1))
+    init_distributed(device=device)
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world != d_data * d_tile:
+        raise SystemExit(
+            f"--mesh {spec} needs a torch.distributed world of {d_data * d_tile} processes, one "
+            f"per card (this process has {world or 'none'}): torchrun "
+            f"--nproc_per_node={d_data * d_tile} -m exavatar_release_tpu_torch.apps.train "
+            f"--mesh {spec} ...")
+    return make_host_mesh(d_tile=d_tile)
 
 
 if __name__ == "__main__":

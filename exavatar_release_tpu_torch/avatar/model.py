@@ -148,6 +148,9 @@ class ForwardOutputs(NamedTuple):
     raster_dropped: Optional[torch.Tensor] = None
     raster_dropped_pairs: Optional[torch.Tensor] = None
     raster_truncated: Optional[torch.Tensor] = None
+    # pairs the Gaussian-sharded renders' exchange found no bucket slot for
+    # (settings.gaussian_shard); RasterCapacityGovernor grows exchange_cap
+    raster_exchange_overflow: Optional[torch.Tensor] = None
 
 
 def _window_origin(center: torch.Tensor, size: int, limit: int) -> int:
@@ -288,6 +291,7 @@ def forward_frame(
     dropped = sum(r["n_dropped"] for r in all_renders)
     dropped_pairs = sum(r["n_dropped_pairs"] for r in all_renders)
     truncated = sum(r["n_truncated"] for r in all_renders)
+    xovf = sum(r["exchange_overflow"].sum() for r in all_renders if "exchange_overflow" in r)
     # all images as (3, H, W)
     img_t = frame.img
     mask_t = frame.mask
@@ -333,6 +337,7 @@ def forward_frame(
     outputs = lambda: ForwardOutputs(
         renders, losses, scene_render["radius"], scene_render["is_vis"],
         raster_dropped=dropped, raster_dropped_pairs=dropped_pairs, raster_truncated=truncated,
+        raster_exchange_overflow=xovf,
     )
     if fit_pose_to_test:
         return outputs()

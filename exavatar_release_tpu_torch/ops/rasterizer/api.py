@@ -22,7 +22,10 @@ renderCUDA's unclamped rule. Under ``torch.no_grad()`` nothing is saved.
 
 ``prepare`` runs everything before the compositing kernel and ``composite``
 runs the kernel, so a caller can time the two apart; ``rasterize`` is the
-two in a row. The mesh/shard settings wait for the ``parallel/`` slice.
+two in a row. With ``in_shard_axis`` set (a rank of a process mesh, inside
+a data x tile step) or with a local ``mesh``, ``rasterize`` hands the render
+to ``parallel/sharded_raster.py``, which renders row bands through the same
+kernels (1 and 2, or 7 and 8 pair-major) at the band's global row offset.
 
 ``kernel_v=2`` takes the dense path through the row-major kernels on
 pre-packed tile-local coefficients (``pack_tile_quads``), with the background
@@ -34,7 +37,7 @@ and interpreter and have no counterpart here, so they get no field.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -78,6 +81,29 @@ class RasterizeSettings:
     # Overflow drops the deepest Gaussians' pairs (n_dropped_pairs)
     max_pairs: int = 0
     pairs_per_gaussian: int = 16
+    # pair lanes per Gaussian of the pair-sort binning, which only the
+    # sharded dense band uses (rectangles past it are cropped, counted in
+    # n_dropped_pairs)
+    max_tiles_per_gaussian: int = 64
+    # a local mesh (parallel.mesh.make_mesh): rasterize shards the image rows
+    # over mesh[shard_axis] in this process (parallel.sharded_raster
+    # .rasterize_sharded); with in_shard_axis, the process mesh
+    # (parallel.mesh.make_host_mesh) whose axis that is
+    mesh: Optional[Any] = None
+    shard_axis: str = "tile"
+    # this process is one rank of mesh[in_shard_axis] (size in_shard_size):
+    # render this rank's row band and all-gather the bands, so every rank
+    # gets the full image (rasterize_in_context); the data x tile step
+    in_shard_axis: Optional[str] = None
+    in_shard_size: int = 0
+    # with in_shard_axis: also shard the Gaussians over the axis; each rank
+    # projects and bins its N/D slice and an all_to_all routes survivors to
+    # their bands (rasterize_gaussian_sharded_in_context)
+    gaussian_shard: bool = False
+    # per (source rank -> band) bucket capacity of that exchange; <= 0 sizes
+    # it as resolve_exchange_cap; overflow is reported (exchange_overflow)
+    # and RasterCapacityGovernor doubles it on sustained overflow
+    exchange_cap: int = 0
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -111,9 +137,9 @@ def _take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.index_select(table, 0, idx.reshape(-1)).reshape(*idx.shape, *table.shape[1:])
 
 
-def _row_table(screen: ScreenGaussians) -> torch.Tensor:
+def _row_table(params: torch.Tensor, color: torch.Tensor) -> torch.Tensor:
     """(N+1, 12) conic+color rows with a sentinel row (log_op = -1e9)."""
-    rows = torch.cat([screen.params, screen.color], dim=1)
+    rows = torch.cat([params, color], dim=1)
     sentinel = torch.zeros(1, 12, device=rows.device)
     sentinel[0, 5] = -1e9
     return torch.cat([rows, sentinel], dim=0)
@@ -145,20 +171,21 @@ class _CompositeRagged(torch.autograd.Function):
     backward: differentiable in ``rows`` and ``bg``."""
 
     @staticmethod
-    def forward(ctx, rows, tid, flags, bg, tile_shape, num_tiles, chunk, nx):
-        full = kernels.composite_pairs_fwd_rg(rows, tid, flags, bg, 0.0, tile_shape, num_tiles,
-                                              chunk, nx)
+    def forward(ctx, rows, tid, flags, bg, oy_off, tile_shape, num_tiles, chunk, nx):
+        full = kernels.composite_pairs_fwd_rg(rows, tid, flags, bg, oy_off, tile_shape,
+                                              num_tiles, chunk, nx)
         ctx.save_for_backward(rows, tid, flags, bg, full)
         ctx.static = (tile_shape, num_tiles, chunk, nx)
+        ctx.oy_off = oy_off
         return full
 
     @staticmethod
     def backward(ctx, g_full):
         rows, tid, flags, bg, full = ctx.saved_tensors
         g_full = g_full.contiguous()
-        drows = kernels.composite_pairs_bwd_rg(rows, tid, flags, bg, 0.0, full, g_full,
+        drows = kernels.composite_pairs_bwd_rg(rows, tid, flags, bg, ctx.oy_off, full, g_full,
                                                *ctx.static)
-        return drows, None, None, _bg_grad(full, g_full), None, None, None, None
+        return drows, None, None, _bg_grad(full, g_full), None, None, None, None, None
 
 
 class _CompositeRowMajor(torch.autograd.Function):
@@ -211,7 +238,7 @@ def prepare(means3d, scales, quats, opacities, rgbs, live, cam: Camera,
     screen = project_gaussians(means3d, scales, quats, opacities, rgbs, live, cam, (H, W),
                                mean2d_offset)
     max_pairs = settings.max_pairs if settings.max_pairs > 0 else settings.pairs_per_gaussian * n
-    rows_pad = _row_table(screen)
+    rows_pad = _row_table(screen.params, screen.color)
 
     if settings.pair_major and settings.backend != "ref":
         chunk = settings.ragged_chunk()
@@ -259,7 +286,7 @@ def composite(inputs: RasterInputs, bg: torch.Tensor,
         return full.permute(0, 2, 1)
     if isinstance(b, RaggedBinning):
         ny, nx = b.num_tiles
-        return _CompositeRagged.apply(inputs.rows, b.tid, b.flags, bg, inputs.tile_shape,
+        return _CompositeRagged.apply(inputs.rows, b.tid, b.flags, bg, 0.0, inputs.tile_shape,
                                       ny * nx, inputs.chunk, nx)
     if settings.backend == "ref":
         return kernels.composite_tiles_fwd_cm_plain(inputs.rows, b.tile_counts, inputs.origins,
@@ -291,7 +318,33 @@ def rasterize(
       n_dropped_pairs  pairs lost to the pair budget
       n_truncated      pairs lost to the dense path's max_per_tile
       n_dropped        the two together on the dense path
+    A sharded render (``in_shard_axis`` or ``mesh``) returns the same image
+    and statistics, without ``tile_counts``; the Gaussian-sharded ones add
+    ``exchange_overflow`` and ``exchange_bytes``.
     """
+    if settings.in_shard_axis is not None:
+        from ...parallel.sharded_raster import (
+            rasterize_gaussian_sharded_in_context,
+            rasterize_in_context,
+        )
+
+        inner = dataclasses.replace(settings, mesh=None, in_shard_axis=None, in_shard_size=0,
+                                    gaussian_shard=False)
+        if settings.gaussian_shard:
+            return rasterize_gaussian_sharded_in_context(
+                means3d, scales, quats, opacities, rgbs, live, cam, img_shape, bg,
+                settings.mesh, settings.in_shard_axis, settings.in_shard_size, inner,
+                cap=settings.exchange_cap, mean2d_offset=mean2d_offset)
+        return rasterize_in_context(
+            means3d, scales, quats, opacities, rgbs, live, cam, img_shape, bg, settings.mesh,
+            settings.in_shard_axis, settings.in_shard_size, inner, mean2d_offset=mean2d_offset)
+    if settings.mesh is not None:
+        from ...parallel.sharded_raster import rasterize_sharded
+
+        return rasterize_sharded(
+            means3d, scales, quats, opacities, rgbs, live, cam, img_shape, bg, settings.mesh,
+            settings.shard_axis, dataclasses.replace(settings, mesh=None),
+            mean2d_offset=mean2d_offset)
     H, W = int(img_shape[0]), int(img_shape[1])
     inputs = prepare(means3d, scales, quats, opacities, rgbs, live, cam, (H, W), settings,
                      mean2d_offset)

@@ -1,7 +1,7 @@
 """Tile binning: assigning depth-ordered Gaussians to image tiles
 (counterpart of exavatar_release_tpu/ops/rasterizer/binning.py; the
-pair-sort, compact and ragged algorithms, without the sharded band's
-tile-row offset, which waits for the parallel/ slice).
+pair-sort, compact and ragged algorithms, each with the sharded band's
+tile-row offset).
 
 ``bin_gaussians_sorted`` (also ``bin_gaussians``; the mesh rasterizer bins
 its faces with it) gives every Gaussian ``max_tiles_per_gaussian`` pair
@@ -30,17 +30,25 @@ def tile_grid(img_shape: Tuple[int, int], tile_h: int, tile_w: int) -> Tuple[int
     return (-(-H // tile_h), -(-W // tile_w))
 
 
-def _tile_rect(m2d, rad, tile_h, tile_w, ny, nx, extent=None):
+def _tile_rect(m2d, rad, tile_h, tile_w, ny, nx, extent=None, tile_row_offset=0):
     """CUDA getRect: [lo, hi) tile rectangle covered by each Gaussian.
 
     ``extent`` (N, 2), when given, replaces the bounding circle with the
-    tight per-axis AABB of the alpha >= 1/255 ellipse."""
+    tight per-axis AABB of the alpha >= 1/255 ellipse.
+
+    ``tile_row_offset`` (int): the viewport is the global tile rows
+    [offset, offset + ny), a row band of a sharded render. The floors run on
+    global pixel coordinates and the offset is subtracted after them, in
+    tile-index space, where it is exact: shifting ``m2d`` by the band's
+    origin in float32 first rounds differently near tile boundaries and
+    flips marginal pairs against the single-device binning."""
     rx = rad if extent is None else extent[:, 0]
     ry = rad if extent is None else extent[:, 1]
+    off = float(tile_row_offset)
     x_lo = torch.clamp(torch.floor((m2d[:, 0] - rx) / tile_w), 0, nx).to(I64)
     x_hi = torch.clamp(torch.floor((m2d[:, 0] + rx + tile_w - 1) / tile_w), 0, nx).to(I64)
-    y_lo = torch.clamp(torch.floor((m2d[:, 1] - ry) / tile_h), 0, ny).to(I64)
-    y_hi = torch.clamp(torch.floor((m2d[:, 1] + ry + tile_h - 1) / tile_h), 0, ny).to(I64)
+    y_lo = torch.clamp(torch.floor((m2d[:, 1] - ry) / tile_h) - off, 0, ny).to(I64)
+    y_hi = torch.clamp(torch.floor((m2d[:, 1] + ry + tile_h - 1) / tile_h) - off, 0, ny).to(I64)
     return x_lo, x_hi, y_lo, y_hi
 
 
@@ -53,7 +61,7 @@ def _fill_forward(starts_at: torch.Tensor, vals: torch.Tensor, size: int, init: 
 
 
 def _compact_sorted_pairs(mean2d, radius, depth, visible, img_shape, tile_h, tile_w,
-                          max_pairs, extent):
+                          max_pairs, extent, tile_row_offset=0):
     """Shared core of the compact/ragged binnings. Returns (order,
     tile_sorted, rank_sorted, starts, counts, total_pairs, ny, nx), all int64,
     with depth order preserved within every tile."""
@@ -70,7 +78,7 @@ def _compact_sorted_pairs(mean2d, radius, depth, visible, img_shape, tile_h, til
     rad = radius[order]
     vis = visible[order] & (rad > 0)
     ext = None if extent is None else extent[order]
-    x_lo, x_hi, y_lo, y_hi = _tile_rect(m2d, rad, tile_h, tile_w, ny, nx, ext)
+    x_lo, x_hi, y_lo, y_hi = _tile_rect(m2d, rad, tile_h, tile_w, ny, nx, ext, tile_row_offset)
     w = x_hi - x_lo
     span = torch.where(vis, w * (y_hi - y_lo), 0)
     offsets = torch.cumsum(span, 0) - span  # exclusive
@@ -145,11 +153,13 @@ def _windows(rank_sorted, starts, counts, n: int, max_per_tile: int) -> torch.Te
 
 def bin_gaussians_sorted(mean2d, radius, depth, visible, img_shape, tile_h=8, tile_w=128,
                          max_per_tile=1024, max_tiles_per_gaussian=64,
-                         extent=None) -> TileBinning:
+                         extent=None, tile_row_offset=0) -> TileBinning:
     """Pair-sort binning: each Gaussian emits up to ``max_tiles_per_gaussian``
     (tile, depth-rank) pairs over its screen rectangle, row-major, keeping
     the top-left part of a larger rectangle (``n_dropped_pairs`` counts the
-    rest); one stable sort by tile keeps the depth order inside every tile."""
+    rest); one stable sort by tile keeps the depth order inside every tile.
+    ``tile_row_offset``: the viewport starts at that global tile row (see
+    ``_tile_rect``)."""
     n = mean2d.shape[0]
     dev = mean2d.device
     ny, nx = tile_grid(img_shape, tile_h, tile_w)
@@ -162,7 +172,7 @@ def bin_gaussians_sorted(mean2d, radius, depth, visible, img_shape, tile_h=8, ti
     rad = radius[order]
     vis = visible[order] & (rad > 0)
     ext = None if extent is None else extent[order]
-    x_lo, x_hi, y_lo, y_hi = _tile_rect(m2d, rad, tile_h, tile_w, ny, nx, ext)
+    x_lo, x_hi, y_lo, y_hi = _tile_rect(m2d, rad, tile_h, tile_w, ny, nx, ext, tile_row_offset)
     w = x_hi - x_lo
     span = w * (y_hi - y_lo)
 
@@ -231,18 +241,20 @@ class RaggedBinning(NamedTuple):
 
 
 def bin_gaussians_ragged(mean2d, radius, depth, visible, img_shape, tile_h=32,
-                         tile_w=128, chunk=256, max_pairs=0, extent=None) -> RaggedBinning:
+                         tile_w=128, chunk=256, max_pairs=0, extent=None,
+                         tile_row_offset=0) -> RaggedBinning:
     """Pair-major binning: the sorted pair list is re-scattered so that every
     tile's window starts on a ``chunk`` boundary (aligned capacity
     max_pairs + T·chunk), with per-chunk-slot tile ids and first/last/valid
-    flags. Every tile owns >= 1 slot so empty tiles still emit background."""
+    flags. Every tile owns >= 1 slot so empty tiles still emit background.
+    ``tile_row_offset``: the viewport starts at that global tile row."""
     n = mean2d.shape[0]
     dev = mean2d.device
     if max_pairs <= 0:
         max_pairs = default_max_pairs(n, tile_h)
     Pm = -(-max_pairs // chunk) * chunk
     (order, tile_sorted, rank_sorted, starts, counts, total_pairs, ny, nx) = _compact_sorted_pairs(
-        mean2d, radius, depth, visible, img_shape, tile_h, tile_w, Pm, extent
+        mean2d, radius, depth, visible, img_shape, tile_h, tile_w, Pm, extent, tile_row_offset
     )
     num_tiles = ny * nx
     Pa = Pm + num_tiles * chunk

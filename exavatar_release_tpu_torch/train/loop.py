@@ -73,6 +73,7 @@ def loss_and_grads(
     is_warmup: bool,
     fit_pose_to_test: bool = False,
     settings: RasterizeSettings = RasterizeSettings(),
+    loss_scale: float = 1.0,
 ) -> Tuple[torch.Tensor, ForwardOutputs, Dict[str, torch.Tensor], torch.Tensor]:
     """Loss of one frame and its gradients. ``bg`` (3,) is the human renders'
     background, which the caller draws from its ``torch.Generator``.
@@ -81,7 +82,8 @@ def loss_and_grads(
     ``trainables.named_parameters()`` to its gradient (zeros where the loss
     does not reach a parameter); ``g_mean2d`` (C, 2) is d(total)/d(a zero
     offset on the scene's projected means), the densification signal. No
-    ``.grad`` field is written."""
+    ``.grad`` field is written. ``total`` is the loss times ``loss_scale``,
+    which the data x tile step sets to 1/D_tile."""
     C = trainables.scene.mean.shape[0]
     offset = torch.zeros(C, 2, device=trainables.scene.mean.device, requires_grad=True)
     out = forward_frame(
@@ -90,7 +92,7 @@ def loss_and_grads(
         frame, bg, cfg, is_warmup=is_warmup, mode="train", fit_pose_to_test=fit_pose_to_test,
         settings=settings, scene_mean2d_offset=offset,
     )
-    total = total_loss(out.losses)
+    total = total_loss(out.losses) * loss_scale
     names, params = zip(*trainables.named_parameters())
     grads = torch.autograd.grad(total, params + (offset,), allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params + (offset,))]
@@ -106,6 +108,35 @@ def init_train_state(trainables: AvatarTrainables, scene_aux: sc.SceneAux,
                      optimizer: GroupAdam) -> TrainState:
     """The state before the first step, on the trainables' device."""
     return TrainState(trainables, optimizer.init(trainables), scene_aux, 0)
+
+
+def apply_update(state: TrainState, grads: Dict[str, torch.Tensor], g_mean2d: torch.Tensor,
+                 is_vis: torch.Tensor, radius: torch.Tensor, optimizer: GroupAdam,
+                 cfg: AvatarConfig, img_shape: Tuple[int, int]) -> TrainState:
+    """The update half of a step, shared by ``train_step`` and the data
+    parallel steps (``parallel/``): the densification statistics from the
+    scene's screen-space mean gradient, visibility and radius (read before
+    the update; they use only the scene's aux, which the update does not
+    touch), the GroupAdam step and the SH degree."""
+    tr = state.trainables
+    scene_state = sc.track_stats(sc.SceneState(tr.scene, state.scene_aux), g_mean2d, is_vis,
+                                 radius, img_shape=img_shape)
+    opt_state = optimizer.update(grads, state.opt_state, tr)
+    aux = dataclasses.replace(
+        scene_state.aux, active_sh_degree=torch.tensor(float(cfg.sh_degree_at(state.itr)),
+                                                       device=tr.scene.mean.device))
+    return TrainState(tr, opt_state, aux, state.itr + 1)
+
+
+def raster_diagnostics(out: ForwardOutputs) -> Dict[str, torch.Tensor]:
+    """The (gaussian, tile) pairs a frame lost to the binning capacities and
+    to the exchange, as float32 scalars: no loss terms."""
+    dev = out.scene_radius.device
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    return {"raster_dropped": f32(out.raster_dropped),
+            "raster_dropped_pairs": f32(out.raster_dropped_pairs),
+            "raster_truncated": f32(out.raster_truncated),
+            "raster_exchange_overflow": f32(out.raster_exchange_overflow)}
 
 
 def train_step(
@@ -124,32 +155,18 @@ def train_step(
     ``bg`` (3,) is uniform in [0, 1), drawn from ``generator`` (on the state's
     device) unless given. Returns (state, loss dict); the dict also carries
     ``total`` and four diagnostics that are no loss terms, the (gaussian,
-    tile) pairs this step lost to the binning capacities."""
+    tile) pairs this step lost to the binning capacities and the exchange."""
     tr = state.trainables
-    dev = tr.scene.mean.device
     if bg is None:
-        bg = torch.rand(3, generator=generator, device=dev)
+        bg = torch.rand(3, generator=generator, device=tr.scene.mean.device)
     total, out, grads, g_m2d = loss_and_grads(tr, state.scene_aux, bundle, frame, bg, cfg,
                                               is_warmup, fit_pose_to_test, settings)
-    # the statistics read the scene as it was before the update; they use
-    # only its aux, which the update does not touch
-    scene_state = sc.track_stats(
-        sc.SceneState(tr.scene, state.scene_aux), g_m2d, out.scene_is_vis, out.scene_radius,
-        img_shape=(int(frame.img.shape[1]), int(frame.img.shape[2])))
-    opt_state = optimizer.update(grads, state.opt_state, tr)
-    aux = dataclasses.replace(
-        scene_state.aux,
-        active_sh_degree=torch.tensor(float(cfg.sh_degree_at(state.itr)), device=dev))
-
+    state = apply_update(state, grads, g_m2d, out.scene_is_vis, out.scene_radius, optimizer,
+                         cfg, (int(frame.img.shape[1]), int(frame.img.shape[2])))
     losses = dict(out.losses)
     losses["total"] = total
-    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
-    losses["raster_dropped"] = f32(out.raster_dropped)
-    losses["raster_dropped_pairs"] = f32(out.raster_dropped_pairs)
-    losses["raster_truncated"] = f32(out.raster_truncated)
-    # the exchange belongs to the gaussian-sharded render, which is not ported
-    losses["raster_exchange_overflow"] = f32(0.0)
-    return TrainState(tr, opt_state, aux, state.itr + 1), losses
+    losses.update(raster_diagnostics(out))
+    return state, losses
 
 
 def densify_step(state: TrainState, cfg: AvatarConfig, use_screen_size_prune: bool,
@@ -205,23 +222,22 @@ class RasterCapacityGovernor:
     after ``patience`` consecutive steps with drops it returns grown
     ``RasterizeSettings`` (pair budget x2 on pair drops, per-tile cap x2 on
     truncation, and the ragged pair-major path instead once the cap would
-    pass ``pair_major_threshold``). The streaks are separate and restart on
-    growth. ``exchange_cap`` is the bucket capacity of the gaussian-sharded
-    render's exchange: the class keeps its own value for it (no setting of
-    this package reads it until the sharded renders are ported).
+    pass ``pair_major_threshold``, and the Gaussian-sharded exchange's
+    ``exchange_cap`` x2 on ``exchange_overflow``). The streaks are separate
+    and restart on growth. An automatic ``exchange_cap`` (<= 0) grows from
+    ``exchange_cap_floor``, which a caller with ``gaussian_shard`` sets to
+    ``parallel.sharded_raster.resolve_exchange_cap(N_max, D)`` so that growth
+    never starts below what the automatic cap gave.
     """
 
     def __init__(self, settings: RasterizeSettings, patience: int = 3,
                  max_pairs_ceiling: int = 1 << 24, max_per_tile_ceiling: int = 1 << 14,
                  log: Optional[Callable[[str], None]] = None, exchange_cap_floor: int = 512,
-                 pair_major_threshold: int = 4096, exchange_cap: int = 0):
+                 pair_major_threshold: int = 4096):
         self.settings = settings
         self.patience = patience
         self.max_pairs_ceiling = max_pairs_ceiling
         self.max_per_tile_ceiling = max_per_tile_ceiling
-        # exchange_cap <= 0 means "sized automatically"; growth starts from
-        # the floor the caller resolved, never below what that gave
-        self.exchange_cap = exchange_cap
         self.exchange_cap_floor = exchange_cap_floor
         self.pair_major_threshold = pair_major_threshold
         self._pair_streak = 0
@@ -239,13 +255,13 @@ class RasterCapacityGovernor:
         self._xovf_streak = self._xovf_streak + 1 if exchange_overflow > 0 else 0
         if self._xovf_streak >= self.patience:
             self._xovf_streak = 0
-            base = (self.exchange_cap if self.exchange_cap > 0
-                    else max(512, self.exchange_cap_floor))
+            # an automatic cap (<= 0) grows from the caller's resolved floor
+            base = s.exchange_cap if s.exchange_cap > 0 else max(512, self.exchange_cap_floor)
             new = min(base * 2, self.max_pairs_ceiling)
-            if new != self.exchange_cap:
-                self._log(f"raster exchange_cap {self.exchange_cap} -> {new} "
+            if new != s.exchange_cap:
+                self._log(f"raster exchange_cap {s.exchange_cap} -> {new} "
                           f"(sustained exchange_overflow={exchange_overflow:.0f})")
-                self.exchange_cap = new
+                s = dataclasses.replace(s, exchange_cap=new)
         if self._pair_streak >= self.patience:
             self._pair_streak = 0
             if s.max_pairs > 0:

@@ -12,8 +12,9 @@ capacity 512, frames of 40 x 32), on a synthetic subject directory:
   ``.npz`` that both packages load;
 * the port's ``apps.train.main`` takes 2 steps with ``--device cpu`` and the
   snapshot it writes loads in JAX's ``load_checkpoint``, leaf for leaf;
-* the flags that wait for ``parallel/`` are refused; ``--profile_dir`` and
-  ``--human_model_path`` are taken.
+* ``--mesh`` outside a torch.distributed world of its size, and
+  ``--gaussian_shard`` without ``--mesh``, are refused; ``--profile_dir``
+  and ``--human_model_path`` are taken.
 """
 import os
 import os.path as osp
@@ -191,8 +192,10 @@ def test_train_snapshot_loads_in_jax(cycle):
 @pytest.mark.parametrize("flag", [["--mesh", "data=2"], ["--gaussian_shard"],
                                   ["--profile_dir", "p"], ["--human_model_path", "assets"]])
 def test_unported_flags_are_refused(cycle, flag, tmp_path):
-    """``--mesh`` and ``--gaussian_shard`` wait for ``parallel/`` and are
-    refused. ``--profile_dir`` and ``--human_model_path`` are ported: the
+    """``--mesh`` needs a torch.distributed world of its size (torchrun),
+    which this process is not in, and ``--gaussian_shard`` needs ``--mesh``:
+    both are refused with a message that says so. ``--profile_dir`` and
+    ``--human_model_path`` are ported: the
     first is taken (a one-step run, which ends before the traced
     iterations), and the second reads the released files from its directory,
     so a directory without them fails in the FLAME loader, as the JAX CLI's
@@ -210,5 +213,6 @@ def test_unported_flags_are_refused(cycle, flag, tmp_path):
         with pytest.raises(FileNotFoundError):
             train.main(args + [flag[0], missing])
     else:
-        with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 5"):
+        match = "torchrun --nproc_per_node=2" if flag[0] == "--mesh" else "give --mesh"
+        with pytest.raises(SystemExit, match=match):
             train.main(args + flag)

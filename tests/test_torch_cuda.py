@@ -587,6 +587,61 @@ def test_render_kernel_v2_card_vs_cpu(dev):
         assert bool(((g - w).abs() <= 5e-4 * scale + 2e-3 * w.abs()).all())
 
 
+@pytest.mark.parametrize("pair_major", [False, True], ids=["dense", "pair_major"])
+def test_band_render_on_a_local_mesh_of_the_card(dev, pair_major):
+    """``rasterize_sharded`` and ``rasterize_gaussian_sharded`` over four row
+    bands on a local mesh of the card (kernels 1/2 or 7/8 at the bands'
+    global row offsets) against the single-device render through the same
+    kernels: outputs within TOL of chip_smoke (bit-equal in practice: the
+    bands' tiles and windows are the single render's), input gradients
+    within 1e-4 of each column's largest value (the pair sums' atomics and
+    the bands' separate gathers sum in other orders)."""
+    from exavatar_release_tpu_torch.core.camera import Camera
+    from exavatar_release_tpu_torch.ops.rasterizer import RasterizeSettings, rasterize
+    from exavatar_release_tpu_torch.parallel import (
+        make_mesh, rasterize_gaussian_sharded, rasterize_sharded)
+
+    rng = np.random.default_rng(8)
+    n, H, W, f = 600, 200, 384, 150.0
+    z = rng.uniform(2.0, 4.0, (n, 1))
+    d = dict(
+        means3d=np.concatenate([rng.uniform(-0.5, 0.5, (n, 1)) * (W / f) * z,
+                                rng.uniform(-0.5, 0.5, (n, 1)) * (H / f) * z, z], 1),
+        scales=np.exp(rng.uniform(np.log(0.02), np.log(0.1), (n, 3))),
+        quats=rng.normal(size=(n, 4)), opacities=rng.uniform(0.3, 0.95, (n, 1)),
+        rgbs=rng.uniform(0, 1, (n, 3)))
+    d = {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in d.items()}
+    cam = Camera(torch.eye(3, device=dev), torch.zeros(3, device=dev),
+                 torch.tensor([f, f], device=dev), torch.tensor([W / 2.0, H / 2.0], device=dev))
+    s = RasterizeSettings(max_per_tile=1024, pair_major=pair_major)
+    mesh = make_mesh((4,), ("tile",), [dev] * 4)
+    live, bg = torch.ones(n, dtype=torch.bool, device=dev), torch.tensor([0.2, 0.4, 0.6],
+                                                                          device=dev)
+
+    def run(render):
+        args = [v.clone().requires_grad_(True) for v in d.values()]
+        o = render(*args, live, cam, (H, W), bg)
+        assert int(o["n_dropped"]) == 0
+        loss = (o["img"] ** 2).sum() + o["depth"].sum() + (o["mask"] * 0.5).sum()
+        return o, torch.autograd.grad(loss, args)
+
+    want, g_want = run(lambda *a: rasterize(*a, s))
+    used = (("composite_pairs_fwd_rg", "composite_pairs_bwd_rg") if pair_major
+            else ("composite_tiles_fwd_cm", "composite_tiles_bwd_cm"))
+    for fn in (rasterize_sharded, rasterize_gaussian_sharded):
+        before = {k: k.launches for k in kn.KERNELS}
+        got, g_got = run(lambda *a: fn(*a, mesh, "tile", s))
+        torch.cuda.synchronize()
+        # one forward and one backward launch for each of the four bands
+        made = {k.__name__: k.launches - before[k] for k in kn.KERNELS}
+        assert made == {k: 4 if k in used else 0 for k in made}, (fn.__name__, made)
+        for k, tol in chip_smoke.TOL.items():
+            assert float((got[k] - want[k]).abs().max()) <= tol, (fn.__name__, k)
+        if fn is rasterize_gaussian_sharded:
+            assert int(got["exchange_overflow"].sum()) == 0
+        assert chip_smoke.input_grad_cols(g_got, g_want) <= chip_smoke.GRAD_TOL, fn.__name__
+
+
 def test_failed_build_raises(dev, tmp_path, monkeypatch):
     from exavatar_release_tpu_torch import cuda_build
 

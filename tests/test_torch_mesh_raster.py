@@ -126,3 +126,35 @@ def test_render_textured_mesh_and_grads(mesh):
         assert np.abs(w).max() > 0, name
         np.testing.assert_allclose(g.numpy() / np.abs(w).max(), w / np.abs(w).max(), atol=1e-4,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("texture", ["random", "ones"])
+def test_grid_sample_2d_vs_jax(texture):
+    """The texture sampler against the JAX package's on the same coordinates,
+    out-of-range taps included: values within 1e-6 and F.grid_sample's
+    semantics; on a texture of ones (the face texture's mask channel) every
+    sample is exactly 1.0 where JAX's is, since the face loss tests it for
+    == 1, and the gradient to the coordinates within 1e-5."""
+    from exavatar_release_tpu.ops.grid_sample import grid_sample_2d as j_sample
+    from exavatar_release_tpu_torch.ops.grid_sample import grid_sample_2d as t_sample
+
+    rng = np.random.default_rng(3)
+    feat = (rng.uniform(0, 1, (4, 13, 17)) if texture == "random"
+            else np.ones((4, 13, 17))).astype(np.float32)
+    coords = rng.uniform(-1.15, 1.15, (4000, 2)).astype(np.float32)
+    want = np.asarray(fast_jit(j_sample)(jnp.asarray(feat), jnp.asarray(coords)))
+    c = torch.from_numpy(coords).requires_grad_(True)
+    got = t_sample(torch.from_numpy(feat), c)
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-6)
+    lib = torch.nn.functional.grid_sample(torch.from_numpy(feat)[None],
+                                          torch.from_numpy(coords)[None, None],
+                                          align_corners=False)[0, :, 0].T
+    np.testing.assert_allclose(got.detach().numpy(), lib.numpy(), atol=1e-6)
+    if texture == "ones":
+        np.testing.assert_array_equal(got.detach().numpy() == 1.0, want == 1.0)
+        assert (want == 1.0).mean() > 0.5
+    w = rng.uniform(-1, 1, want.shape).astype(np.float32)
+    g_want = jax.grad(lambda x: jnp.sum(j_sample(jnp.asarray(feat), x) * w))(
+        jnp.asarray(coords))
+    (got * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(c.grad.numpy(), np.asarray(g_want), atol=1e-5)

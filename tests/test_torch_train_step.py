@@ -27,6 +27,13 @@ face window and an LPIPS crop smaller than the frame).
 Then, in the port alone: the loss falls over 8 steps on one frame, and the
 densify and opacity-reset cadence of ``maybe_adjust_gaussians``.
 
+**One ``parallel.dp_train_step`` over frames 0 and 1** (both local to the
+one rank of a gloo world of one process): its mean gradient, read from the
+first moment, against the mean of the JAX step's ``value_and_grad`` on each
+frame (the step's program called again on frame 1), each leaf within 1e-3
+of its largest value; its densification statistics against JAX's
+``track_stats`` of the two frames' summed screen-space gradients.
+
 **The losses and gradients after warm-up**, against the ``jax.value_and_grad``
 that the JAX ``train_step`` above takes of its loss (captured while it is
 traced), on the same state and background: every loss of the dict (rtol
@@ -69,6 +76,7 @@ bytes.
 """
 import copy
 import dataclasses
+import socket
 
 import jax
 import jax.numpy as jnp
@@ -253,10 +261,11 @@ def step(twin):
                                                     False, False, j.settings)
         assert len(captured) == 1, len(captured)
         (tot, out), (g_tr, g_m2d) = captured[0]
-        return new, losses, (tot, out.losses, g_tr, g_m2d)
+        return new, losses, (tot, out.losses, g_tr, g_m2d, out.scene_is_vis, out.scene_radius)
 
     args = (j_state, j.frame_data[0], key)
-    j_new, j_losses, j_vag = compile_once(j_step, *args)(*args)
+    j_step_c = compile_once(j_step, *args)
+    j_new, j_losses, j_vag = j_step_c(*args)
 
     tr = copy.deepcopy(twin.t_trainables)
     before = {k: p.detach().clone() for k, p in tr.named_parameters()}
@@ -269,7 +278,7 @@ def step(twin):
     want = convert.train_state_from_jax(
         [np.asarray(x) for x in jax.tree_util.tree_leaves(j_new)], twin.t_cfg, device="cpu")
     return dict(new=new, losses=losses, want=want, j_losses=j_losses, before=before,
-                grads=grads, opt=opt, bg=bg, j_vag=j_vag)
+                grads=grads, opt=opt, bg=bg, j_vag=j_vag, j_step=j_step_c, j_state=j_state)
 
 
 def test_loss_dict(step):
@@ -417,7 +426,7 @@ def after_warmup(twin, step):
     its ``train_step`` took above) and the port's ``loss_and_grads`` on the same
     state and background."""
     tw = twin
-    tot, losses, g_tr, g_off = step["j_vag"]
+    tot, losses, g_tr, g_off = step["j_vag"][:4]
     want = {"scene." + k: v for k, v in _fields(g_tr.scene).items()}
     want.update({"human." + k: v.numpy()
                  for k, v in human_params_from_jax(_fields(g_tr.human)).items()})
@@ -479,6 +488,88 @@ def test_step_leaves_parameters_untouched(after_warmup):
         assert torch.equal(p.detach(), before[k]), k
 
 
+# --- one data-parallel step over two frames ----------------------------------
+
+
+def _j_grads(g_tr):
+    """JAX gradients of the trainables under the port's leaf names."""
+    want = {"scene." + k: v for k, v in _fields(g_tr.scene).items()}
+    want.update({"human." + k: v.numpy()
+                 for k, v in human_params_from_jax(_fields(g_tr.human)).items()})
+    want.update({"frames." + k: v for k, v in _fields(g_tr.frames).items()})
+    return want
+
+
+@pytest.fixture(scope="module")
+def two_frames(twin, step):
+    """``parallel.dp_train_step`` of the port over frames 0 and 1, both local
+    to the one rank of a gloo world of one process (the sum over the frames,
+    1/B with B = 2, the update), against the JAX step's own
+    ``jax.value_and_grad`` of each frame's loss (the program of ``step``,
+    called again on frame 1 with another key), from the same state."""
+    import torch.distributed as dist
+
+    from exavatar_release_tpu.avatar import scene as jsc
+    from exavatar_release_tpu_torch.parallel import (
+        dp_train_step, init_distributed, make_host_mesh)
+
+    j = twin.j
+    keys = (jax.random.PRNGKey(5), jax.random.PRNGKey(6))  # frame 0's is step's
+    vags = [step["j_vag"], step["j_step"](step["j_state"], j.frame_data[1], keys[1])[2]]
+    bgs = np.stack([np.array(jax.random.uniform(k, (3,))) for k in keys])
+    # JAX's densification statistics of the two frames, as its data-parallel
+    # step gathers them: gradients summed, visibility OR-ed, radius maxed
+    img_shape = tuple(int(x) for x in j.frame_data[0].img.shape[1:])
+    j_aux = jsc.track_stats(jsc.SceneState(j.trainables.scene, j.scene_aux),
+                            vags[0][3] + vags[1][3], vags[0][4] | vags[1][4],
+                            jnp.maximum(vags[0][5], vags[1][5]), img_shape=img_shape).aux
+    g0, g1 = _j_grads(vags[0][2]), _j_grads(vags[1][2])
+    want = dict(total=(float(vags[0][0]) + float(vags[1][0])) / 2,
+                grads={k: (g0[k] + g1[k]) / 2 for k in g0}, aux=_fields(j_aux))
+
+    tr = copy.deepcopy(twin.t_trainables)
+    opt = make_optimizer(tr, twin.t_cfg, RADIUS, TOT)
+    state = tl.init_train_state(tr, copy.deepcopy(twin.t_scene_aux), opt)._replace(itr=ITR0)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device="cpu")
+    try:
+        new, losses = dp_train_step(state, twin.t_bundle, [twin.t_frame(0), twin.t_frame(1)],
+                                    torch.from_numpy(bgs), opt, twin.t_cfg, make_host_mesh(d_tile=1),
+                                    "data", is_warmup=False, settings=twin.t_settings)
+    finally:
+        dist.destroy_process_group()
+    return new, losses, opt, want
+
+
+def test_dp_train_step_over_two_frames_against_jax(two_frames):
+    """The step's mean gradient (from its first moment, mu = (1 - b1) g from
+    zero) against the mean of JAX's two ``value_and_grad``s, each leaf within
+    1e-3 of its largest value (test_gradient_of_every_leaf's bound): a wrong
+    1/B or a frame summed twice is off by a factor. Its densification
+    statistics against JAX's ``track_stats`` of the two frames' summed
+    screen-space gradients (test_itr_sh_degree_and_statistics's bounds)."""
+    new, losses, opt, want = two_frames
+    np.testing.assert_allclose(float(losses["total"]), want["total"], rtol=1e-4)
+    errs = {}
+    for k, w in want["grads"].items():
+        g = (new.opt_state.mu[k] / (1.0 - opt.b1)).numpy()
+        assert g.shape == w.shape, k
+        errs[k] = float(np.abs(g - w).max()) / max(float(np.abs(w).max()), 1e-12)
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= 1e-3, (worst, errs[worst])
+    # both frames' pose rows are reached, each by its own frame
+    assert float(new.opt_state.mu["frames.body_pose"][0].abs().max()) > 0
+    assert float(new.opt_state.mu["frames.body_pose"][1].abs().max()) > 0
+    a, w = new.scene_aux, want["aux"]
+    np.testing.assert_array_equal(a.track_cnt.numpy(), w["track_cnt"])
+    assert float(a.track_cnt.max()) >= 1
+    np.testing.assert_allclose(a.radius_max.numpy(), w["radius_max"], atol=1e-3)
+    np.testing.assert_allclose(a.xyz_grad_accum.numpy(), w["xyz_grad_accum"],
+                               atol=1e-3 * float(w["xyz_grad_accum"].max()))
+
+
 # --- the capacity governor ---------------------------------------------------
 
 SHARED = ("max_per_tile", "pair_major", "max_pairs", "pairs_per_gaussian")
@@ -535,12 +626,11 @@ def test_update_against_the_jax_class(case):
         ts = tg.update(pairs, trunc, xovf)
         for f in SHARED:
             assert getattr(ts, f) == getattr(js, f), (i, f)
-        # the JAX package keeps the exchange's capacity in its settings; the
-        # port's class keeps it itself until a sharded render reads it
-        assert tg.exchange_cap == js.exchange_cap, i
+        # both packages keep the exchange's capacity in the settings
+        assert ts.exchange_cap == js.exchange_cap, i
     assert logs[0] == logs[1] and logs[0]
     if case == "exchange_cap":
-        assert tg.exchange_cap >= 6000  # grown from the caller's floor, never below it
+        assert ts.exchange_cap >= 6000  # grown from the caller's floor, never below it
 
 
 @pytest.fixture(scope="module")
