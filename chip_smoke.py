@@ -888,6 +888,13 @@ def phase_animate(device, img=(1080, 1920), focal=1200.0, dense_k=16384, timing_
         ok_w, detail, w_in = windows_on_binning(ind.screen, (H, W), ind.tile_shape, dense_k, b,
                                                 dense.pairs_per_gaussian * a.mean_3d.shape[0])
         check("tile_windows on frame 0's binning", ok_w, detail)
+        # the binning oracle at full width (no kernel: the plain binnings)
+        ok_o, detail, o_ms = binning_oracle(ind.screen, (H, W), ind.tile_shape, dense_k, b, sync)
+        res["binning_oracle_ms"] = o_ms
+        check("binnings equal bin_gaussians_scan on frame 0", ok_o, detail)
+        log(f"[animate] binning oracle at {W}x{H}, tiles {ind.tile_shape}, ms "
+            f"{', '.join(f'{k} {v:.3f}' for k, v in o_ms.items())} "
+            f"({card_line() if device == 'cuda' else 'cpu'})")
         if device == "cuda":  # kernel 11 at the binning shape: device, host, launch floor
             import kernel_ab
 
@@ -1766,6 +1773,56 @@ def windows_on_binning(screen, img, tile_shape, K, binning, max_pairs):
     same = torch.equal(got, binning.tile_indices)
     return same, (f"(T, K) = {tuple(got.shape)} from {int(starts[-1])} sorted pairs equals the "
                   f"binning's windows: {same}"), (starts, rank, K, n)
+
+
+def binning_oracle(screen, img, tile_shape, K, frame_binning, sync):
+    """The binnings held to ``bin_gaussians_scan``, the tile-by-tile oracle,
+    on ``order``, ``tile_counts`` and ``tile_indices``: the frame's own
+    compact binning (the frame's tight extents), and ``bin_gaussians_sorted``
+    and ``bin_gaussians_compact`` on the same inputs with the extents and
+    with the radius alone (the JAX package's scan), each with room for every
+    pair. (equal, detail, {what: ms})."""
+    import torch
+
+    from exavatar_release_tpu_torch.ops.rasterizer import binning as bnm
+
+    th, tw = tile_shape
+    ny, nx = bnm.tile_grid(img, th, tw)
+    vis = screen.in_frustum & (screen.radius > 0)
+    args = (screen.mean2d, screen.radius, screen.depth, screen.in_frustum, img, th, tw, K)
+    fields = ("order", "tile_counts", "tile_indices")
+    equal, ms, parts = True, {}, []
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    for tag, ext in (("extent", screen.extent), ("radius", None)):
+        x_lo, x_hi, y_lo, y_hi = bnm._tile_rect(screen.mean2d, screen.radius, th, tw, ny, nx,
+                                                ext)
+        span = torch.where(vis, (x_hi - x_lo) * (y_hi - y_lo), 0)
+        E, pairs = max(1, int(span.max())), int(span.sum())
+        oracle = timed(f"scan_{tag}", lambda: bnm.bin_gaussians_scan(*args, extent=ext))
+        held = {
+            "sorted": timed(f"sorted_{tag}", lambda: bnm.bin_gaussians_sorted(
+                *args, max_tiles_per_gaussian=E, extent=ext)),
+            "compact": timed(f"compact_{tag}", lambda: bnm.bin_gaussians_compact(
+                *args, max_pairs=pairs + 1, extent=ext)),
+        }
+        if ext is not None:
+            held["frame"] = frame_binning
+        for name, b in held.items():
+            same = int(b.n_dropped_pairs) == 0 and all(
+                torch.equal(getattr(b, f), getattr(oracle, f)) for f in fields)
+            equal &= same
+            parts.append(f"{name}/{tag} {'equal' if same else 'DIFFERENT'}")
+        parts.append(f"{tag}: {pairs} pairs, widest rectangle {E} tiles, "
+                     f"max tile count {int(oracle.tile_counts.max())}")
+    return equal, "; ".join(parts), ms
 
 
 def phase_probes(device, n=100_000, check_tiles=16, iters=10, win_inputs=None) -> dict:

@@ -173,3 +173,14 @@ def axis_angle_to_rotation_6d(axis_angle: torch.Tensor) -> torch.Tensor:
 def rotation_6d_to_axis_angle(d6: torch.Tensor) -> torch.Tensor:
     return matrix_to_axis_angle(rotation_6d_to_matrix(d6))
 
+
+def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (w, x, y, z) quaternions."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)

@@ -88,6 +88,16 @@ def band_mask(active_degree, num_bands: int, device=None) -> torch.Tensor:
     return (band_deg <= deg).float()
 
 
+def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """SH evaluation at a fixed degree 0..4.
+    sh: (..., C, B) with B >= (deg+1)^2; dirs: (..., 3) -> (..., C)."""
+    assert 0 <= deg <= 4
+    coeff = (deg + 1) ** 2
+    assert sh.shape[-1] >= coeff
+    basis = sh_basis(dirs)[..., :coeff]
+    return torch.einsum("...cb,...b->...c", sh[..., :coeff], basis)
+
+
 def eval_sh_dynamic(active_degree, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """SH evaluation with the bands above ``active_degree`` masked out.
     sh: (..., C, B); dirs: (..., 3) -> (..., C)."""

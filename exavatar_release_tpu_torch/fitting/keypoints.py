@@ -99,3 +99,17 @@ def full_keypoints(
         extra_ids = torch.from_numpy(extra_joint_ids_for(assets)).to(dev)
     rows = torch.cat([out.joints, out.vertices[extra_ids.long()], out.landmarks], dim=0)
     return rows[torch.tensor(SMPLX_KPT_IDX, device=dev)]
+
+
+# the FLAME keypoint layout: (Neck, Head, Jaw, L_Eye, R_Eye, Face_1..68,
+# L_Ear, R_Ear), from the FLAME forward's joints, landmarks and ear vertices
+FLAME_KPT_NUM = 75
+
+
+def flame_full_keypoints(out: SMPLXOutput, lear_vertex_idx: int,
+                         rear_vertex_idx: int) -> torch.Tensor:
+    """(75, 3): [neck (global), head (neck joint), jaw, leye, reye, Face_1..68
+    landmarks, lear, rear]."""
+    lear = out.vertices[lear_vertex_idx][None]
+    rear = out.vertices[rear_vertex_idx][None]
+    return torch.cat([out.joints, out.landmarks, lear, rear], dim=0)

@@ -9,6 +9,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -131,3 +132,10 @@ class SMPLXOutput:
     v_shaped: torch.Tensor  # (V, 3) template + shape blendshapes (no expr)
     joints_zero_pose: torch.Tensor  # (J, 3) rest joints used by FK
     rel_transforms: torch.Tensor  # (J, 4, 4) FK skinning transforms A
+
+
+def np_faces(faces) -> np.ndarray:
+    """(F, 3) int32 numpy faces from a tensor on any device, or an array."""
+    if isinstance(faces, torch.Tensor):
+        faces = faces.detach().cpu().numpy()
+    return np.asarray(faces, dtype=np.int32)

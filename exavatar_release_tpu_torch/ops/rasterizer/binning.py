@@ -1,7 +1,7 @@
 """Tile binning: assigning depth-ordered Gaussians to image tiles
 (counterpart of exavatar_release_tpu/ops/rasterizer/binning.py; the
 pair-sort, compact and ragged algorithms, each with the sharded band's
-tile-row offset).
+tile-row offset, and the tile-by-tile scan that is their oracle).
 
 ``bin_gaussians_sorted`` (also ``bin_gaussians``; the mesh rasterizer bins
 its faces with it) gives every Gaussian ``max_tiles_per_gaussian`` pair
@@ -201,6 +201,52 @@ def bin_gaussians_sorted(mean2d, radius, depth, visible, img_shape, tile_h=8, ti
 
 
 bin_gaussians = bin_gaussians_sorted
+
+
+def bin_gaussians_scan(mean2d, radius, depth, visible, img_shape, tile_h=8, tile_w=128,
+                       max_per_tile=1024, extent=None) -> TileBinning:
+    """The oracle the other binnings are held to: every tile compacts the
+    depth-sorted Gaussians whose rectangle covers it, O(T x N), 256 tiles at
+    a time (the JAX package's chunks; its last chunk is padded, here it is
+    shorter). Its ``order``, ``tile_indices`` and ``tile_counts`` are the
+    pair-sort's and the compact binning's wherever those drop no pair.
+    ``extent`` (N, 2), when given, takes the place of the radius as in
+    ``_tile_rect``; the JAX package's scan has none. No pair is dropped."""
+    n = mean2d.shape[0]
+    dev = mean2d.device
+    ny, nx = tile_grid(img_shape, tile_h, tile_w)
+    num_tiles = ny * nx
+
+    sort_key = torch.where(visible, depth, torch.inf)
+    order = torch.argsort(sort_key, stable=True)
+    m2d = mean2d[order]
+    rad = radius[order]
+    vis = visible[order] & (rad > 0)
+    ext = None if extent is None else extent[order]
+    x_lo, x_hi, y_lo, y_hi = _tile_rect(m2d, rad, tile_h, tile_w, ny, nx, ext)
+    rank = torch.arange(n, dtype=I64, device=dev)[None, :]
+
+    indices, counts = [], []
+    chunk = min(256, num_tiles)
+    for t0 in range(0, num_tiles, chunk):
+        t = torch.arange(t0, min(t0 + chunk, num_tiles), dtype=I64, device=dev)[:, None]
+        ty, tx = torch.div(t, nx, rounding_mode="floor"), torch.remainder(t, nx)
+        hit = vis & (x_lo <= tx) & (tx < x_hi) & (y_lo <= ty) & (ty < y_hi)  # (chunk, N)
+        pos = torch.cumsum(hit, dim=1) - 1  # each hit's slot in its tile
+        slots = torch.where(hit & (pos < max_per_tile), pos, max_per_tile)  # else dropped
+        out = torch.full((t.shape[0], max_per_tile + 1), n, dtype=I64, device=dev)
+        out.scatter_(1, slots, rank.expand_as(slots))
+        indices.append(out[:, :max_per_tile])
+        counts.append(hit.sum(dim=1))
+    tile_counts = torch.cat(counts)
+    return TileBinning(
+        order=order.to(I32),
+        tile_indices=torch.cat(indices).to(I32),
+        tile_counts=tile_counts.to(I32),
+        num_tiles=(ny, nx),
+        n_dropped_pairs=torch.zeros((), dtype=I32, device=dev),
+        n_truncated=torch.sum(torch.clamp(tile_counts - max_per_tile, min=0)).to(I32),
+    )
 
 
 def bin_gaussians_compact(mean2d, radius, depth, visible, img_shape, tile_h=8,

@@ -3,7 +3,11 @@ the same numpy scene: ``track_stats`` (1e-6), ``_alloc_slots`` (integers
 exact), ``densify_and_prune`` in both prune modes and on a full scene that
 drops requests (the split children's noise is what ``jax.random.normal`` drew
 from the same key; live mask, ``reset_mask`` and the four counts exact,
-parameters 1e-6), ``reset_opacity`` (1e-6).
+parameters 1e-6), ``reset_opacity`` (1e-6). ``densify_and_prune`` and
+``reset_opacity``, whose chains run through exp, log and sigmoid, are held
+under the seam of tests/torch_xla_math.py (XLA's transcendentals for the
+port's) and, as the ``torch_libm`` cases, on the port's own libm, at the
+same bounds.
 """
 
 import jax
@@ -18,6 +22,7 @@ from exavatar_release_tpu_torch.avatar import scene as tsc
 from exavatar_release_tpu_torch.avatar.config import AvatarConfig as TCfg
 from exavatar_release_tpu_torch.avatar.convert import scene_from_jax
 from torch_port_fixture import fast_jit
+from torch_xla_math import seam_cases, xla_transcendentals
 
 torch.set_num_threads(2)
 
@@ -120,15 +125,16 @@ def test_alloc_slots_integers(n_free, n_want):
 CASES = {"no_screen_prune": (60, False), "screen_prune": (60, True), "full_scene": (92, False)}
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_densify_and_prune(case):
+@pytest.mark.parametrize("case, seam", seam_cases(list(CASES)))
+def test_densify_and_prune(case, seam):
     n_live, screen = CASES[case]
     params, aux = _scene(3, n_live, hot_share=0.8)
     key = jax.random.PRNGKey(7)
     eps = np.array(jax.random.normal(key, (2, C, 3)))
     want = _J["densify_and_prune"](_j_state(params, aux), key, JCfg(), screen)
-    got = tsc.densify_and_prune(_t_state(params, aux), TCfg(), screen,
-                                eps=torch.from_numpy(eps))
+    with xla_transcendentals(seam):
+        got = tsc.densify_and_prune(_t_state(params, aux), TCfg(), screen,
+                                    eps=torch.from_numpy(eps))
     for k in ("n_cloned", "n_split", "n_pruned", "n_dropped"):
         assert int(getattr(got, k)) == int(getattr(want, k)), k
     np.testing.assert_array_equal(got.reset_mask.numpy(), np.asarray(want.reset_mask))
@@ -152,11 +158,13 @@ def test_densify_draws_its_noise_from_the_generator():
     assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
 
 
-def test_reset_opacity():
+@pytest.mark.parametrize("seam", [True, False], ids=["xla_libm", "torch_libm"])
+def test_reset_opacity(seam):
     params, aux = _scene(4, 60)
     want, j_mask = _J["reset_opacity"](_j_state(params, aux))
     state = _t_state(params, aux)
-    got, t_mask = tsc.reset_opacity(state)
+    with xla_transcendentals(seam):
+        got, t_mask = tsc.reset_opacity(state)
     _assert_state(got, want)
     assert got.params is state.params  # written in place
     assert bool(t_mask.all()) and t_mask.shape == (C,) and bool(np.asarray(j_mask).all())

@@ -9,6 +9,11 @@ for the losses, the gradients and the staged trajectory. Its gradients are
 read from one step with no first moment and a second moment of 1e30: Adam's
 update is then the gradient times a constant (``_jax_grads``), so no second
 JAX program is built.
+
+The comparisons at 1e-6 whose chains run through sin, cos and atan2 (the
+smoothing, the initial parameters, the losses) are held under the seam of
+tests/torch_xla_math.py (XLA's transcendentals for the port's) and, as the
+``torch_libm`` cases, on the port's own libm, at the same bounds.
 """
 from types import SimpleNamespace
 
@@ -37,6 +42,7 @@ from exavatar_release_tpu.ops.mesh_raster import rasterize_mesh as j_rasterize_m
 from exavatar_release_tpu.utils import mesh_io as j_mesh_io
 from exavatar_release_tpu.utils import vis as j_vis
 from exavatar_release_tpu_torch.fitting import fit as tfit
+from torch_xla_math import seam_cases, xla_transcendentals
 from exavatar_release_tpu_torch.fitting import keypoints as tkp
 from exavatar_release_tpu_torch.fitting import kpt_convert as tkc
 from exavatar_release_tpu_torch.fitting.convert import fit_statics_from_numpy, \
@@ -245,25 +251,30 @@ def test_statics_flip_correspondence_and_duplicate_winner(twin):
     np.testing.assert_array_equal(got_g.numpy(), want_g)
 
 
-def test_smooth_sequence(twin):
+@pytest.mark.parametrize("seam", [True, False], ids=["xla_libm", "torch_libm"])
+def test_smooth_sequence(twin, seam):
     rng = np.random.default_rng(7)
     F = 11
     seq = [{"root_pose": rng.normal(0, 0.5, 3), "trans": rng.normal(0, 1, 3),
             "expr": rng.normal(0, 1, 4),
             "betas": rng.normal(0, 1, 6)} for _ in range(F)]
     for window in (9, 5, 15):
-        want, got = j_smooth_sequence(seq, window), t_smooth_sequence(seq, window)
+        want = j_smooth_sequence(seq, window)
+        with xla_transcendentals(seam):
+            got = t_smooth_sequence(seq, window)
         for w, g in zip(want, got):
             assert set(w) == set(g)
             for k in w:
                 np.testing.assert_allclose(g[k], w[k], rtol=1e-6, atol=1e-6, err_msg=k)
 
 
-def test_init_params_and_stage_masks(twin):
+@pytest.mark.parametrize("seam", [True, False], ids=["xla_libm", "torch_libm"])
+def test_init_params_and_stage_masks(twin, seam):
     smplx_init, flame_init = twin["inits"]
     tf, ta = twin["tf"], twin["ta"]
-    t_p = init_fitting_params(smplx_init, flame_init, np.zeros(tf.num_shape), ta.num_shape,
-                              tf.num_vertices, ta.num_joints, device="cpu")
+    with xla_transcendentals(seam):
+        t_p = init_fitting_params(smplx_init, flame_init, np.zeros(tf.num_shape), ta.num_shape,
+                                  tf.num_vertices, ta.num_joints, device="cpu")
     want = _np_params(twin["j_p0"])
     for k, v in t_p.named().items():
         assert v.shape == want[k].shape and v.dtype == torch.float32, k
@@ -276,9 +287,10 @@ def test_init_params_and_stage_masks(twin):
                 assert getattr(tm, k) == float(getattr(jm, k)), (k, root_only, allow_shared)
 
 
-@pytest.mark.parametrize("warmup,hjo", [(True, False), (True, True), (False, True),
-                                        (False, False)])
-def test_fitting_forward_losses_and_gradients(twin, warmup, hjo):
+@pytest.mark.parametrize("flags, seam", seam_cases(
+    {"True-False": (True, False), "True-True": (True, True), "False-True": (False, True),
+     "False-False": (False, False)}))
+def test_fitting_forward_losses_and_gradients(twin, flags, seam):
     """Every loss term by name (rtol 1e-5, atol 1e-6) and every leaf's
     gradient (1e-4 of the leaf's largest magnitude, plus an absolute 2^-14:
     ``smplx_to_flame_lap`` weighs the squared Laplacian of the zero-pose face
@@ -286,20 +298,23 @@ def test_fitting_forward_losses_and_gradients(twin, warmup, hjo):
     rounding alone, so its gradient there is rounding noise in steps of 2^-17
     in both packages; in float64 the port puts JAX's own float32 value 2
     steps from the exact one)."""
+    warmup, hjo = flags
     leaves = _perturbed(twin)
     want_losses, want_grads = _jax_grads(twin, leaves, warmup, hjo)
     t_p = fitting_params_from_jax(leaves, device="cpu")
     state = tfit.init_fit_state(t_p, tfit.make_fit_optimizer())
-    losses = fitting_forward(state.params, twin["t_st"], _t_frames(twin["fr"]),
-                             torch.arange(N_FRAMES), warmup, hjo)
-    tot = sum(losses.values())
+    with xla_transcendentals(seam):
+        losses = fitting_forward(state.params, twin["t_st"], _t_frames(twin["fr"]),
+                                 torch.arange(N_FRAMES), warmup, hjo)
+        tot = sum(losses.values())
     assert list(losses) == sorted(want_losses.keys() - {"total"})
     for k, v in losses.items():
         np.testing.assert_allclose(float(v), want_losses[k], rtol=1e-5, atol=1e-6, err_msg=k)
     np.testing.assert_allclose(float(tot), want_losses["total"], rtol=1e-5, atol=1e-6)
     assert (want_losses["flame_to_smplx_v2v"] > 0) == warmup
     assert (want_losses["smplx_pose"] > 0) != warmup
-    grads = torch.autograd.grad(tot, list(state.params.named().values()))
+    with xla_transcendentals(seam):
+        grads = torch.autograd.grad(tot, list(state.params.named().values()))
     for k, g in zip(LEAVES, grads):
         w = want_grads[k]
         scale = np.abs(w).max()

@@ -4,7 +4,9 @@ with and without scale, ``covariance_from_scale_quat`` and
 ``transform_points_homogeneous`` (atol 1e-5, float32 on both sides), every
 ``fitting_init`` function (the rotations and translations 1e-5; the pure
 numpy ones exactly) and ``load_xhumans_smplx_init`` on a seeded pkl
-directory (exactly)."""
+directory (exactly). The root inits (sin, cos, atan2) are held under the seam
+of tests/torch_xla_math.py (XLA's transcendentals for the port's) and, as
+the ``torch_libm`` case, on the port's own libm, at the same bound."""
 import os
 import pickle
 
@@ -18,6 +20,7 @@ from exavatar_release_tpu.data import fitting_init as jfi
 from exavatar_release_tpu_torch.core import geometry as tg
 from exavatar_release_tpu_torch.data import fitting_init as tfi
 from torch_frame_fixture import fast_jit
+from torch_xla_math import xla_transcendentals
 
 torch.set_num_threads(2)
 
@@ -98,7 +101,8 @@ def test_bbox_init_and_crop_intrinsics():
                                   jfi.keypoints_to_crop(kpt[:, :2], bbox, (8, 6)))
 
 
-def test_root_inits():
+@pytest.mark.parametrize("seam", [True, False], ids=["xla_libm", "torch_libm"])
+def test_root_inits(seam):
     rng = np.random.default_rng(6)
     smplx_v = rng.normal(0, 0.3, (200, 3)).astype(np.float32)
     face_idx = rng.choice(200, 40, replace=False)
@@ -107,15 +111,17 @@ def test_root_inits():
                + rng.normal(0, 0.002, (40, 3))).astype(np.float32)
     root = rng.normal(0, 0.5, 3).astype(np.float32)
     trans = np.asarray([0.1, -0.2, 2.5], np.float32)
-    got = tfi.flame_root_init(root, trans, smplx_v, face_idx, flame_v)
+    with xla_transcendentals(seam):  # sin, cos, atan2
+        got = tfi.flame_root_init(root, trans, smplx_v, face_idx, flame_v)
     want = jfi.flame_root_init(root, trans, smplx_v, face_idx, flame_v)
     for g, w in zip(got, want):
         assert g.dtype == np.float32 and g.shape == (3,)
         np.testing.assert_allclose(g, w, atol=ATOL)
     cam_R = _rotation(rng)
     for cr in (cam_R, cam_R.astype(np.float64)):
-        np.testing.assert_allclose(tfi.world_to_cam_root_pose(root, cr),
-                                   jfi.world_to_cam_root_pose(root, cr), atol=ATOL)
+        with xla_transcendentals(seam):
+            g = tfi.world_to_cam_root_pose(root, cr)
+        np.testing.assert_allclose(g, jfi.world_to_cam_root_pose(root, cr), atol=ATOL)
 
 
 def test_load_xhumans_smplx_init(tmp_path):

@@ -71,6 +71,17 @@ APPS_MODULES = ("tools.kvariants", "tools.win_probe", "data.colmap", "data.subje
                 "apps.prepare_fit_pose_to_test", "apps.run_mmpose", "apps.run_sam",
                 "apps.run_depth_anything", "apps.preprocess")
 TRAIN_ALONE = ("train.optim", "train.checkpoint", "apps.train", "avatar.convert")
+# the last functions of the JAX package to be ported, by module
+# (tests/test_torch_last_functions.py holds each against JAX)
+LAST_FUNCTIONS = {
+    "core.camera": ("world_to_cam", "cam_to_world", "cam_to_pixel", "pixel_to_cam",
+                    "get_view_matrix", "get_proj_matrix", "full_projection"),
+    "core.sh": ("eval_sh",),
+    "core.rotations": ("quaternion_multiply",),
+    "fitting.keypoints": ("flame_full_keypoints", "FLAME_KPT_NUM"),
+    "ops.rasterizer.binning": ("bin_gaussians_scan",),
+    "models.smplx.structs": ("np_faces",),
+}
 
 _FORK_CHECKS = """
 import importlib, json, os, sys
@@ -110,9 +121,9 @@ print(json.dumps(out))
 @pytest.fixture(scope="module")
 def imports():
     """{check: the top-level modules loaded, or "error: ..."}: each module of
-    APPS_MODULES and TRAIN_ALONE alone, and "all": the package and every
-    module of it."""
-    checks = {m: [m] for m in APPS_MODULES + TRAIN_ALONE}
+    APPS_MODULES, TRAIN_ALONE and LAST_FUNCTIONS alone, and "all": the
+    package and every module of it."""
+    checks = {m: [m] for m in APPS_MODULES + TRAIN_ALONE + tuple(LAST_FUNCTIONS)}
     checks["all"] = [""] + _port_modules()
     r = subprocess.run([sys.executable, "-c", _FORK_CHECKS, json.dumps(checks)], cwd=REPO,
                        check=True, timeout=300, capture_output=True, text=True)
@@ -149,6 +160,19 @@ def test_module_list_covers_the_fitting_modules():
     mods = _port_modules()
     missing = [m for m in FIT_MODULES if m not in mods]
     assert not missing, missing
+
+
+def test_last_functions_import_alone_without_jax(imports):
+    """Each module of the last functions ported imports first in a process
+    of its own, loads no JAX, and holds its new names."""
+    import importlib
+
+    bad = {m: _loaded(imports, m, FORBIDDEN) for m in LAST_FUNCTIONS}
+    assert not any(bad.values()), bad
+    missing = [(m, n) for m, names in LAST_FUNCTIONS.items() for n in names
+               if not hasattr(importlib.import_module("exavatar_release_tpu_torch." + m), n)]
+    assert not missing, missing
+    assert sum(len(v) for v in LAST_FUNCTIONS.values()) == 13  # 12 functions, 1 constant
 
 
 def test_each_train_module_imports_alone_without_jax(imports):

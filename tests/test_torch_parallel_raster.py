@@ -8,17 +8,23 @@ package's on the same inputs:
 * ``rasterize_sharded`` and ``rasterize_gaussian_sharded`` over four bands
   against JAX's own on ``make_mesh((4,), ("tile",))`` (its virtual CPU
   devices), backend "ref", on tests/gs_scene.py's 96-Gaussian 64x256 scene
-  and on a non-divisible N and H: img and mask within 1e-5, depth 1e-4,
-  radius exact, mean2d 1e-4, the four input gradients at rtol 1e-5 /
-  atol 2e-4 (tests/test_parallel.py's bounds); the per-rank exchange
-  overflow at cap 2 equal to JAX's;
+  and on a non-divisible N and H: under the seam of tests/torch_xla_math.py
+  (XLA's transcendentals for the port's), img and mask within 1e-5, depth
+  1e-4, radius exact, mean2d 1e-4, the four input gradients at rtol 1e-5 /
+  atol 2e-4 (tests/test_parallel.py's bounds); on the port's own libm (the
+  ``torch_libm`` cases) the gradients at ``OWN_LIBM_GRAD`` (4x the old
+  bounds; the worst seen was 1.9x them on an AVX-512 host); the per-rank
+  exchange overflow at cap 2 equal to JAX's;
 * the exchange's deepest-first overflow (tests/test_parallel.py:245) against
   JAX's ``_exchange_to_bands``;
 * the dense and pair-major kernel paths (the kernels' plain versions on the
   CPU) sharded over two bands on every tests/goldens scene, against the
-  goldens' values (1e-6, depth 1e-5) and input gradients (1e-5 of each
-  leaf's largest; 2.5e-2 in scene2, whose front layer clamps), the bounds
-  of tests/test_torch_rasterizer.py and tests/test_torch_raster_grad.py.
+  goldens' values and input gradients: under the seam at 1e-6 (depth
+  1e-5) and 1e-5 of each leaf's largest (2.5e-2 in scene2, whose front
+  layer clamps), the bounds of tests/test_torch_rasterizer.py and
+  tests/test_torch_raster_grad.py; on the port's own libm the values at
+  ``OWN_LIBM_TOL`` (1e-5 / 1e-5 / 5e-5) and the gradients at the same
+  bounds as under the seam.
 
 The JAX references run as one program (``fast_jit``).
 """
@@ -44,6 +50,7 @@ from exavatar_release_tpu_torch.parallel import make_mesh
 from exavatar_release_tpu_torch.parallel import sharded_raster as tsr
 from gs_scene import make_scene
 from torch_port_fixture import fast_jit
+from torch_xla_math import seam_cases, xla_transcendentals
 
 torch.set_num_threads(2)
 
@@ -51,6 +58,10 @@ GOLDENS = sorted(glob.glob(osp.join(osp.dirname(osp.abspath(__file__)), "goldens
 KEYS = ("means3d", "scales", "quats", "opacities", "rgbs", "live")
 GRAD_KEYS = ("means3d", "scales", "opacities", "rgbs")
 SCENES = {"n96_64x256": (96, (64, 256)), "n50_50x256": (50, (50, 256))}
+# the port on its own libm (tests/torch_xla_math.py): about 4x the worst
+# seen on an AVX-512 host
+OWN_LIBM_TOL = {"img": 1e-5, "mask": 1e-5, "depth": 5e-5}
+OWN_LIBM_GRAD = dict(rtol=4e-5, atol=8e-4)
 
 
 @pytest.fixture(scope="module")
@@ -160,12 +171,14 @@ def _t_render(render, sc, settings, **kw):
     return r, xs
 
 
-@pytest.mark.parametrize("scene", list(SCENES))
-@pytest.mark.parametrize("render", ["sharded", "gaussian"])
-def test_sharded_render_vs_jax(j_renders, render, scene):
+@pytest.mark.parametrize("render, scene, seam", seam_cases(
+    ["sharded", "gaussian"], list(SCENES)))
+def test_sharded_render_vs_jax(j_renders, render, scene, seam):
     want, g_want = j_renders[f"{scene}/{render}"]
-    r, xs = _t_render(render, _scene(scene), RasterizeSettings(backend="ref", max_per_tile=256))
-    _loss(r).backward()
+    with xla_transcendentals(seam):
+        r, xs = _t_render(render, _scene(scene),
+                          RasterizeSettings(backend="ref", max_per_tile=256))
+        _loss(r).backward()
     H = SCENES[scene][1][0]
     assert r["img"].shape == (H, 256, 3) and r["radius"].shape == (SCENES[scene][0],)
     for k, tol in (("img", 1e-5), ("mask", 1e-5), ("depth", 1e-4), ("mean2d", 1e-4)):
@@ -175,8 +188,9 @@ def test_sharded_render_vs_jax(j_renders, render, scene):
     if render == "gaussian":
         np.testing.assert_array_equal(r["exchange_overflow"].numpy(), want["exchange_overflow"])
         assert float(r["exchange_bytes"]) == float(want["exchange_bytes"])
+    grad_tol = dict(rtol=1e-5, atol=2e-4) if seam else OWN_LIBM_GRAD
     for i, k, gw in zip((0, 1, 3, 4), GRAD_KEYS, g_want):
-        np.testing.assert_allclose(xs[i].grad.numpy(), gw, rtol=1e-5, atol=2e-4, err_msg=k)
+        np.testing.assert_allclose(xs[i].grad.numpy(), gw, err_msg=k, **grad_tol)
 
 
 def test_exchange_overflow_per_rank_vs_jax(j_renders):
@@ -248,24 +262,26 @@ def _scaled(got, want):
     return float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
 
 
-@pytest.mark.parametrize("render", ["sharded", "gaussian"])
-@pytest.mark.parametrize("pair_major", [False, True], ids=["dense", "pair_major"])
-@pytest.mark.parametrize("path", GOLDENS, ids=[osp.basename(p) for p in GOLDENS])
-def test_golden_kernel_paths_over_two_bands(path, pair_major, render):
+@pytest.mark.parametrize("path, pair_major, render, seam", seam_cases(
+    {osp.basename(p): p for p in GOLDENS}, {"dense": False, "pair_major": True},
+    ["sharded", "gaussian"]))
+def test_golden_kernel_paths_over_two_bands(path, pair_major, render, seam):
     d, cam, shape = _golden(path)
     settings = RasterizeSettings(tile_h=8, tile_w=128, max_per_tile=64, chunk=32,
                                  pair_major=pair_major)
     xs = [torch.from_numpy(d[k]).requires_grad_(True)
           for k in ("means3d", "scales", "quats", "opacities", "rgbs")]
     fn = tsr.rasterize_sharded if render == "sharded" else tsr.rasterize_gaussian_sharded
-    out = fn(*xs, torch.from_numpy(d["live"]), cam, shape, torch.from_numpy(d["bg"]),
-             _t_mesh(2), "tile", settings)
-    np.testing.assert_allclose(out["img"].detach().numpy(), d["img"], atol=1e-6)
-    np.testing.assert_allclose(out["mask"].detach().numpy(), d["mask"], atol=1e-6)
-    np.testing.assert_allclose(out["depth"].detach().numpy(), d["depth"], atol=1e-5)
-    np.testing.assert_array_equal(out["radius"].detach().numpy(), d["radius"])
-    assert int(out["n_dropped"]) == 0
-    _golden_loss(out, shape).backward()
+    tol = {"img": 1e-6, "mask": 1e-6, "depth": 1e-5} if seam else OWN_LIBM_TOL
+    with xla_transcendentals(seam):
+        out = fn(*xs, torch.from_numpy(d["live"]), cam, shape, torch.from_numpy(d["bg"]),
+                 _t_mesh(2), "tile", settings)
+        for k in ("img", "mask", "depth"):
+            np.testing.assert_allclose(out[k].detach().numpy(), d[k], atol=tol[k], err_msg=k)
+        np.testing.assert_array_equal(out["radius"].detach().numpy(), d["radius"])
+        assert int(out["n_dropped"]) == 0
+        _golden_loss(out, shape).backward()
     clamps = osp.basename(path) == "scene2.npz"
+    bound = 2.5e-2 if clamps else 1e-5
     for x, name in zip(xs, ("g_means3d", "g_scales", "g_quats", "g_opacities", "g_rgbs")):
-        assert _scaled(x.grad.numpy(), d[name]) <= (2.5e-2 if clamps else 1e-5), name
+        assert _scaled(x.grad.numpy(), d[name]) <= bound, name

@@ -15,8 +15,10 @@ the injected backends of tests/torch_preprocess_fakes.py:
 * ``preprocess.main`` with ``--device cpu --skip_fit --smooth_length 3`` in
   this process, with the depth loader injected and the unwrap's atlas cut to
   32 x 32: the smoothed parameters are JAX's ``smooth_sequence`` of the same
-  files within 1e-6, and the smoothed meshes, the face texture, the check
-  video and the cloud are written. Without ``--device cpu`` and without a
+  files within 1e-6 (under the seam of tests/torch_xla_math.py, XLA's
+  transcendentals for the port's, and on the port's own libm), and the
+  smoothed meshes, the face texture, the check video and the cloud are
+  written. Without ``--device cpu`` and without a
   card it raises before any step.
 """
 import json
@@ -45,6 +47,7 @@ from test_data import make_synthetic_subject
 from torch_frame_fixture import fast_jit
 from torch_preprocess_fakes import FakeSamPredictor, fake_depth, fake_wholebody, \
     write_driver_subject
+from torch_xla_math import xla_transcendentals
 
 torch.set_num_threads(2)
 
@@ -191,7 +194,8 @@ def test_prepare_fit_pose_to_test(tmp_path, monkeypatch):
     assert epoch == -1 and restored.itr == state.itr
 
 
-def test_preprocess_on_the_cpu(subject, monkeypatch):
+@pytest.mark.parametrize("seam", [True, False], ids=["xla_libm", "torch_libm"])
+def test_preprocess_on_the_cpu(subject, monkeypatch, seam):
     monkeypatch.setitem(common.SYNTHETIC_BODY, "rings", RINGS)
     monkeypatch.setitem(common.SYNTHETIC_BODY, "segs", SEGS)
     unwrap_main = unwrap.main
@@ -212,8 +216,9 @@ def test_preprocess_on_the_cpu(subject, monkeypatch):
         with open(p) as f:
             seq.append({k: np.asarray(v, np.float32) for k, v in json.load(f).items()})
 
-    out = preprocess.main(["--subject_root", subject, "--device", "cpu", "--skip_fit",
-                           "--smooth_length", "3"])
+    with xla_transcendentals(seam):  # the smoothing's sin, cos and atan2
+        out = preprocess.main(["--subject_root", subject, "--device", "cpu", "--skip_fit",
+                               "--smooth_length", "3"])
     assert loaded == ["cpu"] and out["fit"] is None and 0 < out["coverage"] <= 1
     assert set(out["seconds"]) == {"cameras", "mmpose", "sam", "unwrap", "smooth",
                                    "smooth_video", "depth"}

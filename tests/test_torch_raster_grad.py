@@ -16,6 +16,10 @@
   opaque front layer clamps;
 * ``mean2d_offset``: forward and d loss / d offset against the JAX package,
   backend "ref" on both sides.
+
+The comparisons with the goldens and with the JAX package run under the
+seam of tests/torch_xla_math.py (XLA's transcendentals for the port's) and,
+as the ``torch_libm`` cases, on the port's own libm, at the same bounds.
 """
 import glob
 import os.path as osp
@@ -35,6 +39,7 @@ from exavatar_release_tpu_torch.ops.rasterizer import RasterizeSettings, rasteri
 from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
 from torch_frame_fixture import fast_jit
 from torch_windows import ragged, windows
+from torch_xla_math import seam_cases, xla_transcendentals
 
 torch.set_num_threads(2)
 
@@ -208,25 +213,28 @@ def _input_grads(d, cam, shape, settings):
 _BASE = dict(tile_h=8, tile_w=128, max_per_tile=64, chunk=32)
 
 
-@pytest.mark.parametrize("path", GOLDENS, ids=[osp.basename(p) for p in GOLDENS])
-def test_golden_grads_ref_backend(path):
+@pytest.mark.parametrize("path, seam", seam_cases({osp.basename(p): p for p in GOLDENS}))
+def test_golden_grads_ref_backend(path, seam):
     d, cam, shape = _golden(path)
-    for g, name in zip(_input_grads(d, cam, shape, RasterizeSettings(backend="ref", **_BASE)),
-                       G_NAMES):
+    with xla_transcendentals(seam):
+        got = _input_grads(d, cam, shape, RasterizeSettings(backend="ref", **_BASE))
+    for g, name in zip(got, G_NAMES):
         assert _scaled(g, d[name]) <= 1e-5, name
 
 
-@pytest.mark.parametrize("pair_major", [False, True], ids=["dense", "pair_major"])
-@pytest.mark.parametrize("path", GOLDENS, ids=[osp.basename(p) for p in GOLDENS])
-def test_golden_grads_kernel_paths(path, pair_major, monkeypatch):
+@pytest.mark.parametrize("path, pair_major, seam", seam_cases(
+    {osp.basename(p): p for p in GOLDENS}, {"dense": False, "pair_major": True}))
+def test_golden_grads_kernel_paths(path, pair_major, seam, monkeypatch):
     d, cam, shape = _golden(path)
-    got = _input_grads(d, cam, shape, RasterizeSettings(pair_major=pair_major, **_BASE))
+    with xla_transcendentals(seam):
+        got = _input_grads(d, cam, shape, RasterizeSettings(pair_major=pair_major, **_BASE))
     clamps = osp.basename(path) == "scene2.npz"
     for g, name in zip(got, G_NAMES):
         assert _scaled(g, d[name]) <= (2.5e-2 if clamps else 1e-5), name
     # and at 1e-5 in every scene against autograd with the unclamped rule
     _patch_alpha_clamp(monkeypatch)
-    want = _input_grads(d, cam, shape, RasterizeSettings(backend="ref", **_BASE))
+    with xla_transcendentals(seam):
+        want = _input_grads(d, cam, shape, RasterizeSettings(backend="ref", **_BASE))
     worst = max(_scaled(g, w) for g, w in zip(got, want))
     assert worst <= 1e-5, worst
     if clamps:  # the rule matters here: scene2 does clamp
@@ -243,7 +251,8 @@ def test_no_grad_saves_nothing():
     assert out["img"].grad_fn is None and not out["img"].requires_grad
 
 
-def test_mean2d_offset_forward_and_grad():
+@pytest.mark.parametrize("seam", [True, False], ids=["xla_libm", "torch_libm"])
+def test_mean2d_offset_forward_and_grad(seam):
     d, cam, shape = _golden(GOLDENS[1])
     rng = np.random.default_rng(5)
     n = d["means3d"].shape[0]
@@ -264,10 +273,11 @@ def test_mean2d_offset_forward_and_grad():
 
     (_, want), g_want = fast_jit(jax.value_and_grad(j_loss, has_aux=True))(jnp.asarray(off))
     to = torch.from_numpy(off).requires_grad_(True)
-    got = rasterize(*(torch.from_numpy(d[k]) for k in keys), cam, shape,
-                    torch.from_numpy(d["bg"]), RasterizeSettings(backend="ref", **_BASE),
-                    mean2d_offset=to)
-    _t_loss(got, shape).backward()
+    with xla_transcendentals(seam):
+        got = rasterize(*(torch.from_numpy(d[k]) for k in keys), cam, shape,
+                        torch.from_numpy(d["bg"]), RasterizeSettings(backend="ref", **_BASE),
+                        mean2d_offset=to)
+        _t_loss(got, shape).backward()
     np.testing.assert_allclose(got["img"].detach().numpy(), np.asarray(want["img"]), atol=1e-5)
     np.testing.assert_allclose(got["mask"].detach().numpy(), np.asarray(want["mask"]), atol=1e-5)
     np.testing.assert_allclose(got["mean2d"].detach().numpy(), np.asarray(want["mean2d"]),

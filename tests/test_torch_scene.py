@@ -1,7 +1,11 @@
 """Scene Gaussians of the PyTorch port against the JAX package on the CPU:
 spherical harmonics, the k=4 KNN scale statistic, the point-cloud
 initialisation and the decoding to render-ready assets, and the per-frame
-6D pose store, on identical numpy inputs. Tolerance 1e-5 (float32 on both sides; sums in another order)."""
+6D pose store, on identical numpy inputs. Tolerance 1e-5 (float32 on both sides; sums in another order).
+``scene_assets`` and the pose store, whose chains run through sigmoid, exp,
+sin, cos and atan2, are held under the seam of tests/torch_xla_math.py
+(XLA's transcendentals for the port's) and, as the ``torch_libm`` cases, on
+the port's own libm, at the same bound."""
 import dataclasses
 
 import jax
@@ -23,6 +27,7 @@ from exavatar_release_tpu_torch.avatar.param_dict import init_param_frames as t_
 from exavatar_release_tpu_torch.core import sh as tsh
 from exavatar_release_tpu_torch.ops.knn import mean_knn_dist_sq as t_mean_knn
 from torch_frame_fixture import fast_jit
+from torch_xla_math import seam_cases, xla_transcendentals
 
 torch.set_num_threads(2)
 ATOL = 1e-5
@@ -109,8 +114,8 @@ def test_init_from_point_cloud(cloud):
                                   3.0, 100)
 
 
-@pytest.mark.parametrize("deg", [0.0, 2.0])
-def test_scene_assets(cloud, deg):
+@pytest.mark.parametrize("deg, seam", seam_cases({"0.0": 0.0, "2.0": 2.0}))
+def test_scene_assets(cloud, deg, seam):
     _, _, state = cloud
     rng = np.random.default_rng(3)
     p = state.params.replace(
@@ -123,7 +128,8 @@ def test_scene_assets(cloud, deg):
     t = np.asarray([0.1, -0.2, 0.5], np.float32)
     want = fast_jit(jsc.scene_assets)(jsc.SceneState(p, aux), jnp.asarray(R), jnp.asarray(t))
     tp, ta = scene_from_jax(_fields(p), _fields(aux), device="cpu")
-    got = tsc.scene_assets(tsc.SceneState(tp, ta), torch.from_numpy(R), torch.from_numpy(t))
+    with xla_transcendentals(seam):  # sigmoid, exp
+        got = tsc.scene_assets(tsc.SceneState(tp, ta), torch.from_numpy(R), torch.from_numpy(t))
     for k in ("mean_3d", "opacity", "scale", "rotation", "rgb"):
         np.testing.assert_allclose(getattr(got, k).detach().numpy(),
                                    np.asarray(getattr(want, k)), atol=ATOL, err_msg=k)
@@ -162,7 +168,8 @@ def test_set_sh_degree_and_asset_helpers(cloud):
     assert torch.equal(both.rgb[:256], a.rgb) and torch.equal(both.rgb[256:], a.rgb)
 
 
-def test_param_frames_store_and_lookup():
+@pytest.mark.parametrize("seam", [True, False], ids=["xla_libm", "torch_libm"])
+def test_param_frames_store_and_lookup(seam):
     rng = np.random.default_rng(7)
     frames = [
         {"root_pose": rng.normal(0, 1, 3), "body_pose": rng.normal(0, 0.3, (21, 3)),
@@ -172,7 +179,8 @@ def test_param_frames_store_and_lookup():
         for _ in range(3)
     ]
     want = fast_jit(lambda: j_init_param_frames(frames))()  # the poses enter as constants
-    got = t_init_param_frames(frames, device="cpu")
+    with xla_transcendentals(seam):  # sin, cos, atan2 of the 6D rotations
+        got = t_init_param_frames(frames, device="cpu")
     assert got.num_frames == want.num_frames == 3
     assert len(list(got.parameters())) == 9
     for k, w in _fields(want).items():
