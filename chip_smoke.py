@@ -285,8 +285,9 @@ def profile_frame(fn, top: int = 12, what: str = "one pair-major frame") -> dict
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.key_averages()
+    # the program's spans also come back as device-side annotations
     device_ms = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA) / 1e3
+                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
     log(f"[profile] {what}: wall {wall_ms:.3f} ms, device busy "
         f"{device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}%); top operators by device time:")
     ops = [e for e in events if e.device_type == DeviceType.CPU]
@@ -2576,7 +2577,8 @@ def device_launches(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     device_ms = sum(e.device_time for e in dev) / 1e3
     return {"launches": len(dev), "device_ms": device_ms, "wall_ms": wall_ms}
 

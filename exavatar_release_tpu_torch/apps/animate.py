@@ -30,6 +30,7 @@ from ..avatar.param_dict import PosedSMPLXParams
 from ..core.camera import Camera
 from ..models.smplx.prior import SMPLXIDInfo, SMPLXPrior
 from ..ops.rasterizer.api import RasterizeSettings, rasterize
+from ..utils.profiling import span
 
 
 @torch.no_grad()
@@ -52,12 +53,13 @@ def render_motion(
     bg = torch.ones(3, device=human.triplane.device)
     frames = []
     for pose, cam in zip(poses, cams, strict=True):
-        hout = human_forward(human, buffers, prior, pose, id_info, cam.R, cam.t, cfg)
-        a = hout.assets_refined
-        frames.append(rasterize(
-            a.mean_3d, a.scale, a.rotation, a.opacity, a.rgb, a.live, cam, (H, W),
-            bg, settings,
-        ))
+        with span("animate.frame"):
+            hout = human_forward(human, buffers, prior, pose, id_info, cam.R, cam.t, cfg)
+            a = hout.assets_refined
+            frames.append(rasterize(
+                a.mean_3d, a.scale, a.rotation, a.opacity, a.rgb, a.live, cam, (H, W),
+                bg, settings,
+            ))
     return frames
 
 

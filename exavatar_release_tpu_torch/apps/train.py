@@ -12,7 +12,8 @@ exavatar_release_tpu/apps/train.py).
 capacity governor, frames decoded per step in the epoch's order (the native
 prefetcher or cv2, ``--loader``), a ``speed: total(step r read)`` log line per
 step and a snapshot per epoch. ``--profile_dir`` traces iterations 20-40
-with ``torch.profiler`` into ``<profile_dir>/trace.json`` (a Chrome trace).
+with ``torch.profiler`` into ``<profile_dir>/trace.json`` (a Chrome trace of
+the kernels and of the program's spans, ``utils.profiling.span``).
 ``--mesh data=a,tile=b`` trains on a process mesh under ``torchrun`` (a*b
 processes, one card each): each step takes ``a`` frames, one per data
 group, through ``parallel.dp_tile_train_step``, every render split into
@@ -44,7 +45,7 @@ from ..train.loop import (
 from ..parallel import dp_tile_train_step
 from ..train.optim import GroupAdam
 from ..utils.logging import Timer
-from ..utils.profiling import TRACE_FILE, trace
+from ..utils.profiling import TRACE_FILE, span, trace
 
 # iterations [start, stop) that ``profile_dir`` traces, as the JAX CLI does
 PROFILE_ITRS = (20, 40)
@@ -196,7 +197,8 @@ def train_loop(
                                                        generator=gen)
                 # one transfer for the whole dict: the governor needs the counters
                 names = list(losses)
-                values = torch.stack([losses[n].float() for n in names]).tolist()
+                with span("sync.drop_counters"):
+                    values = torch.stack([losses[n].float() for n in names]).tolist()
                 gpu_timer.toc()
                 rec = dict(zip(names, values))
                 msg = [f"Epoch {epoch}/{cfg.end_epoch} itr {itr}/{itr_per_epoch}:",
@@ -256,7 +258,9 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainResult:
                          "(all_to_all band exchange; per-rank projection and binning N/D)")
     ap.add_argument("--max_itrs", type=int, default=None, help="debug cap")
     ap.add_argument("--profile_dir", default=None,
-                    help="trace iterations 20-40 with torch.profiler into <dir>/trace.json")
+                    help="trace iterations 20-40 with torch.profiler into <dir>/trace.json: "
+                         "the kernels and the program's spans (train.step, model.forward, "
+                         "human.forward, raster.prepare, train.backward, ...)")
     ap.add_argument("--mesh", default=None,
                     help="process mesh 'data=a,tile=b' under torchrun (a*b processes): data "
                          "parallel over frames x row-band-sharded rendering "

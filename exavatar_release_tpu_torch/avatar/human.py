@@ -23,6 +23,7 @@ from ..models.smplx.structs import SMPLXParams
 from ..nn import MLP
 from ..ops.grid_sample import triplane_sample
 from ..ops.knn import knn
+from ..utils.profiling import spanned
 from .config import AvatarConfig
 from .gaussians import GaussianAssets
 from .param_dict import PosedSMPLXParams
@@ -214,6 +215,7 @@ def get_mean_offset_offset(
     return regressed + smplx_pose_offset * mask, regressed
 
 
+@spanned("human.forward")
 def human_forward(
     human: HumanGaussians,
     buffers: HumanBuffers,

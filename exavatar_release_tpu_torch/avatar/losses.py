@@ -17,6 +17,7 @@ from ..core.geometry import vertex_normals
 from ..models.smplx.structs import SMPLX_JOINT_NAMES
 from ..ops.image_metrics import masked_mean, ssim_map
 from ..ops.lpips import LPIPSParams, lpips_distance
+from ..utils.profiling import spanned
 
 # --------------------------------------------------------------------------
 # image-space losses
@@ -52,6 +53,7 @@ def ssim_loss(img_out: torch.Tensor, img_target: torch.Tensor,
     return masked_mean(1.0 - s, region_mask)
 
 
+@spanned("loss.lpips")
 def lpips_loss(lpips_params: LPIPSParams, img_out: torch.Tensor, img_target: torch.Tensor,
                region_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """LPIPS on [0, 1] images."""

@@ -25,6 +25,7 @@ from ..ops.image_metrics import bbox_mask
 from ..ops.lpips import LPIPSParams
 from ..ops.mesh_raster import render_textured_mesh
 from ..ops.rasterizer.api import RasterizeSettings, rasterize
+from ..utils.profiling import span, spanned
 from . import losses as L
 from . import scene as sc
 from .config import AvatarConfig
@@ -158,9 +159,11 @@ def _window_origin(center: torch.Tensor, size: int, limit: int) -> int:
     clipped into [0, limit - size]. The float32 difference truncates toward
     zero, like the JAX package's int32 cast. One host sync: the origin
     becomes a Python int, so the window is a plain slice."""
-    return min(max(int(center - size * 0.5), 0), limit - size)
+    with span("sync.window_origin"):
+        return min(max(int(center - size * 0.5), 0), limit - size)
 
 
+@spanned("model.forward")
 def forward_frame(
     trainables: AvatarTrainables,
     scene_aux: sc.SceneAux,
@@ -235,17 +238,18 @@ def forward_frame(
         princpt_w = cam.princpt
 
     def face_render_of(asset):
-        patch = render_textured_mesh(
-            uvmap, asset.mean_3d[fv], statics.face_faces, cam.R, cam.t, cam.focal, princpt_w,
-            (frh, frw), statics.face_face_uv, statics.face_vertex_uv,
-        )
-        if fcy is None:
-            return patch
-        # embed at the -1 background that fills ALL channels: exact as long
-        # as the face projects inside the window
-        base = torch.full((patch.shape[0], H, W), -1.0, device=dev)
-        base[:, fcy:fcy + frh, fcx:fcx + frw] = patch
-        return base
+        with span("face.render"):
+            patch = render_textured_mesh(
+                uvmap, asset.mean_3d[fv], statics.face_faces, cam.R, cam.t, cam.focal,
+                princpt_w, (frh, frw), statics.face_face_uv, statics.face_vertex_uv,
+            )
+            if fcy is None:
+                return patch
+            # embed at the -1 background that fills ALL channels: exact as
+            # long as the face projects inside the window
+            base = torch.full((patch.shape[0], H, W), -1.0, device=dev)
+            base[:, fcy:fcy + frh, fcx:fcx + frw] = patch
+            return base
 
     face_render = face_render_of(human_asset)
     face_render_ref = face_render_of(human_asset_ref)

@@ -18,6 +18,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils.profiling import span
 from .grid_sample import grid_sample_2d
 from .rasterizer.binning import bin_gaussians, tile_grid
 
@@ -134,7 +135,8 @@ def rasterize_mesh(
         # only the 64-face chunks its fullest tile fills; empty tiles none
         counts = torch.clamp(binning.tile_counts.long(), max=face_ids.shape[1])
         busy = torch.argsort(counts, descending=True, stable=True)
-        busy_counts = counts[busy].tolist()  # the one read of the binning
+        with span("sync.mesh_tiles"):
+            busy_counts = counts[busy].tolist()  # the one read of the binning
         best_z = torch.full(px.shape, torch.inf, device=dev)
         best_f = torch.full(px.shape, -1, dtype=torch.int64, device=dev)
         for t0 in range(0, ny * nx, _TILE_BATCH):

@@ -42,6 +42,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 import torch
 
 from ...core.camera import Camera
+from ...utils.profiling import spanned
 from . import kernels
 from .binning import (
     RaggedBinning,
@@ -225,6 +226,7 @@ def _bg_grad(full: torch.Tensor, g_full: torch.Tensor) -> torch.Tensor:
     return torch.sum(g_full[:, 0:3] * (1.0 - full[:, 4:5]), dim=(0, 2))
 
 
+@spanned("raster.prepare")
 def prepare(means3d, scales, quats, opacities, rgbs, live, cam: Camera,
             img_shape: Tuple[int, int], settings: RasterizeSettings,
             mean2d_offset: Optional[torch.Tensor] = None) -> RasterInputs:
@@ -272,6 +274,7 @@ def prepare(means3d, scales, quats, opacities, rgbs, live, cam: Camera,
     return RasterInputs(screen, binning, win, origins, (th, tw), 0)
 
 
+@spanned("raster.composite")
 def composite(inputs: RasterInputs, bg: torch.Tensor,
               settings: RasterizeSettings) -> torch.Tensor:
     """The compositing kernel on ``prepare``'s output -> (T, 5, P)."""

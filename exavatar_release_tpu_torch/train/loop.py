@@ -40,6 +40,7 @@ from ..avatar.model import (
 from ..models.smplx.prior import SMPLXIDInfo, SMPLXPrior
 from ..ops.lpips import LPIPSParams
 from ..ops.rasterizer.api import RasterizeSettings
+from ..utils.profiling import span, spanned
 from .optim import AdamState, GroupAdam, zero_opacity_moments, zero_scene_moments
 
 
@@ -94,14 +95,20 @@ def loss_and_grads(
     )
     total = total_loss(out.losses) * loss_scale
     names, params = zip(*trainables.named_parameters())
-    grads = torch.autograd.grad(total, params + (offset,), allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params + (offset,))]
-    detached = out._replace(
-        renders={k: v.detach() for k, v in out.renders.items()},
-        losses={k: v.detach() for k, v in out.losses.items()},
-        scene_radius=out.scene_radius.detach(),
-    )
-    return total.detach(), detached, dict(zip(names, grads[:-1])), grads[-1]
+    with span("train.backward"):
+        grads = torch.autograd.grad(total, params + (offset,), allow_unused=True)
+    # the outputs leave the graph, which is freed with ``out`` and ``total``
+    with span("train.outputs"):
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, params + (offset,))]
+        detached = out._replace(
+            renders={k: v.detach() for k, v in out.renders.items()},
+            losses={k: v.detach() for k, v in out.losses.items()},
+            scene_radius=out.scene_radius.detach(),
+        )
+        total = total.detach()
+        del out
+    return total, detached, dict(zip(names, grads[:-1])), grads[-1]
 
 
 def init_train_state(trainables: AvatarTrainables, scene_aux: sc.SceneAux,
@@ -110,6 +117,7 @@ def init_train_state(trainables: AvatarTrainables, scene_aux: sc.SceneAux,
     return TrainState(trainables, optimizer.init(trainables), scene_aux, 0)
 
 
+@spanned("train.update")
 def apply_update(state: TrainState, grads: Dict[str, torch.Tensor], g_mean2d: torch.Tensor,
                  is_vis: torch.Tensor, radius: torch.Tensor, optimizer: GroupAdam,
                  cfg: AvatarConfig, img_shape: Tuple[int, int]) -> TrainState:
@@ -139,6 +147,7 @@ def raster_diagnostics(out: ForwardOutputs) -> Dict[str, torch.Tensor]:
             "raster_exchange_overflow": f32(out.raster_exchange_overflow)}
 
 
+@spanned("train.step")
 def train_step(
     state: TrainState,
     bundle: ModelBundle,
@@ -193,6 +202,7 @@ def opacity_reset_step(state: TrainState) -> TrainState:
     return state._replace(opt_state=zero_opacity_moments(state.opt_state))
 
 
+@spanned("train.adjust")
 def maybe_adjust_gaussians(
     state: TrainState, cur_itr: int, cfg: AvatarConfig, fit_pose_to_test: bool = False,
     generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None,
