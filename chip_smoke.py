@@ -27,7 +27,9 @@ the JAX package) and fails with a non-zero exit when any phase fails:
    ``apps.animate.render_motion``, pair-major and dense, with every launch
    counter set to 0 just before and read just after; checks the frames and
    holds both kernels against their plain versions on the frame's own
-   inputs; times the frame split into human_forward, projection+binning and
+   inputs, and every launch of the binning kernels (``expand_pairs``,
+   ``chunk_slots``) bit for bit against theirs on the same card tensors;
+   times the frame split into human_forward, projection+binning and
    composite, and each kernel beside its bound and its plain version;
 5. runs the differentiable frame at the same width with a scene of 20,000
    live Gaussians (capacity 32,768) behind the human: one test-mode
@@ -43,7 +45,9 @@ the JAX package) and fails with a non-zero exit when any phase fails:
    the default ``RasterizeSettings()`` with a capacity governor of patience
    1 until it has switched to pair-major and loses no pair; further steps on
    one frame (loss falls, statistics tracked, time per step split into
-   ``loss_and_grads``, optimizer update and ``track_stats``); densify/prune
+   ``loss_and_grads``, optimizer update and ``track_stats``; the first
+   step's binning kernel launches held bit for bit against their plain
+   versions and timed at each of the step's render sizes); densify/prune
    with the Adam-moment surgery, opacity reset, capacity growth; a
    checkpoint written and read back on the card; and the same step through
    ``kernel_v=2``, whose row-major kernels (and the two of the row-major
@@ -90,7 +94,8 @@ the JAX package) and fails with a non-zero exit when any phase fails:
    then a ``torch.distributed`` world of one NCCL rank: the data x tile train
    step with and without ``gaussian_shard`` against ``train_step``, and the
    train CLI with ``--mesh data=1,tile=1 --gaussian_shard``. Kernels 1, 2, 7
-   and 8 run the bands at their global row offsets.
+   and 8 run the bands at their global row offsets, and the pair-major bands
+   bin through the binning kernels.
 
 Weights are random, drawn from seeded ``torch.Generator``s and then brought
 into a trained avatar's range (Gaussian scales of ~6 mm, offsets of ~mm),
@@ -102,12 +107,14 @@ the line before them.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+import types
 from typing import NamedTuple
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -137,7 +144,10 @@ RM_FWD_KERNELS = ("composite_tiles_fwd_v2", "composite_tiles_fwd")
 RM_BWD_KERNELS = ("composite_tiles_bwd_v2", "composite_tiles_bwd")
 # the measuring kernels of the probe tools
 PROBE_KERNELS = ("composite_tiles_fwd_variant", "composite_tiles_bwd_variant", "tile_windows")
-ALL_KERNELS = FWD_KERNELS + BWD_KERNELS + RM_FWD_KERNELS + RM_BWD_KERNELS + PROBE_KERNELS
+# the compact and ragged binnings' pair expansion and chunk slots
+BINNING_KERNELS = ("expand_pairs", "chunk_slots")
+ALL_KERNELS = (FWD_KERNELS + BWD_KERNELS + RM_FWD_KERNELS + RM_BWD_KERNELS + PROBE_KERNELS
+               + BINNING_KERNELS)
 # kernels 1-8 run the pair bodies of composite.cu / composite_bwd.cu, and the
 # stage probes (9, 10) the same bodies under their variants' hooks
 KERNEL_SOURCE = {k: "exavatar_release_tpu_torch/csrc/composite.cu"
@@ -145,8 +155,14 @@ KERNEL_SOURCE = {k: "exavatar_release_tpu_torch/csrc/composite.cu"
 KERNEL_SOURCE.update({k: "exavatar_release_tpu_torch/csrc/composite_bwd.cu"
                       for k in BWD_KERNELS + RM_BWD_KERNELS + PROBE_KERNELS[1:2]})
 KERNEL_SOURCE["tile_windows"] = "exavatar_release_tpu_torch/csrc/windows.cu"
+KERNEL_SOURCE.update(dict.fromkeys(BINNING_KERNELS, "exavatar_release_tpu_torch/csrc/binning.cu"))
 _PK = "exavatar_release_tpu/ops/rasterizer/pallas_kernels.py"
+# no TPU kernel for the binning kernels: they replace the JAX package's
+# scatter + lax.cummax forward fills
+_JB = "exavatar_release_tpu/ops/rasterizer/binning.py"
 REPLACES = {
+    "expand_pairs": f"{_JB}:289",
+    "chunk_slots": f"{_JB}:461",
     "composite_tiles_fwd_variant": "tools/kvariants.py:393",
     "composite_tiles_bwd_variant": "tools/kvariants.py:429",
     "tile_windows": "tools/win_probe.py:46",
@@ -269,6 +285,74 @@ def read_launches() -> dict:
     from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
 
     return {k: getattr(kn, k).launches for k in ALL_KERNELS}
+
+
+@contextlib.contextmanager
+def checked_binning(record: dict):
+    """While open, every launch of a binning kernel (BINNING_KERNELS) made
+    through ``ops/rasterizer/binning.py`` is held against its plain version
+    on the same tensors: ``record[name]`` gets (inputs, largest difference
+    of any output) for each launch."""
+    import torch
+
+    from exavatar_release_tpu_torch.ops.rasterizer import binning as bnm
+    from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
+
+    def checked(name):
+        kernel, plain = getattr(kn, name), getattr(kn, f"{name}_plain")
+
+        def call(*args):
+            out = kernel(*args)
+            err = max((0 if torch.equal(a, b) else int((a.long() - b.long()).abs().max()))
+                      for a, b in zip(out, plain(*args)))
+            record.setdefault(name, []).append((args, err))
+            return out
+        return call
+
+    saved = bnm.kernels
+    bnm.kernels = types.SimpleNamespace(**{k: checked(k) for k in BINNING_KERNELS})
+    try:
+        yield record
+    finally:
+        bnm.kernels = saved
+
+
+def check_binning_launches(check, record: dict, want: dict) -> None:
+    """``check`` that ``record`` (``checked_binning``) holds ``want[name]``
+    launches of each binning kernel, every one equal to its plain version."""
+    for name in BINNING_KERNELS:
+        errs = [err for _, err in record.get(name, [])]
+        check(f"{name} vs plain, every launch", len(errs) == want.get(name, 0)
+              and not any(errs), f"{len(errs)} launches, largest difference "
+              f"{max(errs, default=0)}, bit for bit")
+
+
+def binning_kernel_stats(tag: str, record: dict, device) -> dict:
+    """Each binning kernel at each distinct size ``record`` holds, on the card:
+    ms, plain ms and bound ms (``kernel_ab.binning_kernel_times``). Per
+    kernel, the largest size's numbers, every size's under ``by_size``."""
+    import kernel_ab
+    from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
+
+    stats = {}
+    for name, launches in record.items():
+        by_size = {}
+        for args, err in launches:
+            size = args[-1]  # Pm or NC
+            if size not in by_size:
+                by_size[size] = {"max_abs_err": err}
+                if device == "cuda":
+                    by_size[size].update(kernel_ab.binning_kernel_times(kn, name, args))
+                    t = by_size[size]
+                    log(f"[{tag}] {name} at {'Pm' if name == 'expand_pairs' else 'NC'} {size}: "
+                        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                        f"{t['bound_ms']:.4f} ms ({t['bound_by']}), equal {t['equal']}")
+            by_size[size]["max_abs_err"] = max(by_size[size]["max_abs_err"], err)
+        if device == "cuda":
+            top = by_size[max(by_size)]
+            stats[name] = {**top, "max_abs_err": max(v["max_abs_err"] for v in by_size.values()),
+                           "by_size": by_size}
+    return stats
 
 
 def profile_frame(fn, top: int = 12, what: str = "one pair-major frame") -> dict:
@@ -828,10 +912,13 @@ def phase_animate(device, img=(1080, 1920), focal=1200.0, dense_k=16384, timing_
     ragged = api.RasterizeSettings(pair_major=True)
     dense = api.RasterizeSettings(max_per_tile=dense_k)
 
-    # the main path: every launch counter at 0 just before, read just after
+    # the main path: every launch counter at 0 just before, read just after;
+    # each binning kernel launch held against its plain version
     reset_launches()
-    fr = render_motion(human, buffers, prior, id_info, poses, cams, cfg, ragged, (H, W))
-    fd = render_motion(human, buffers, prior, id_info, poses, cams, cfg, dense, (H, W))
+    binned = {}
+    with checked_binning(binned):
+        fr = render_motion(human, buffers, prior, id_info, poses, cams, cfg, ragged, (H, W))
+        fd = render_motion(human, buffers, prior, id_info, poses, cams, cfg, dense, (H, W))
     sync()
     launches = read_launches()
     log(f"[animate] launches on the main path: {launches}")
@@ -862,6 +949,12 @@ def phase_animate(device, img=(1080, 1920), focal=1200.0, dense_k=16384, timing_
     # serving runs under no_grad: no backward, nothing saved; and no row-major kernel
     for k in BWD_KERNELS + RM_FWD_KERNELS + RM_BWD_KERNELS:
         check(f"{k} not launched", launches[k] == 0, f"{launches[k]} launches")
+    # a pair expansion every render, chunk slots every pair-major render
+    want_binning = {"expand_pairs": 2 * len(poses), "chunk_slots": len(poses)}
+    for k, v in want_binning.items():
+        check(f"{k} launched", launches[k] == (v if device == "cuda" else 0),
+              f"{launches[k]} launches")
+    check_binning_launches(check, binned, want_binning)
 
     # both kernels against their plain versions on frame 0's own inputs
     bg = torch.ones(3, device=device)
@@ -889,7 +982,8 @@ def phase_animate(device, img=(1080, 1920), focal=1200.0, dense_k=16384, timing_
         ok_w, detail, w_in = windows_on_binning(ind.screen, (H, W), ind.tile_shape, dense_k, b,
                                                 dense.pairs_per_gaussian * a.mean_3d.shape[0])
         check("tile_windows on frame 0's binning", ok_w, detail)
-        # the binning oracle at full width (no kernel: the plain binnings)
+        # the binning oracle at full width (the compact binnings expand their pairs in
+        # kernels.expand_pairs; the scan and the pair-sort binning launch no kernel)
         ok_o, detail, o_ms = binning_oracle(ind.screen, (H, W), ind.tile_shape, dense_k, b, sync)
         res["binning_oracle_ms"] = o_ms
         check("binnings equal bin_gaussians_scan on frame 0", ok_o, detail)
@@ -942,6 +1036,8 @@ def phase_animate(device, img=(1080, 1920), focal=1200.0, dense_k=16384, timing_
                             "bound_by": bound_by, "max_abs_err": max(e.values())}
                 log(f"[animate] {k}: {ms[k]:.4f} ms, plain {plain[k]:.2f} ms, "
                     f"bound {bound_ms:.6f} ms ({bound_by})")
+        # the binning kernels on the pair-major renders' own inputs (one size)
+        stats.update(binning_kernel_stats("animate", binned, device))
         res["kernel_stats"] = stats
 
         # per-frame split after warm-up
@@ -1149,10 +1245,14 @@ def phase_frame(device, timing_iters=2, **setup_kw) -> dict:
                 f"{res[f'peak_bytes_{name}'] / 2**30:.3f} GiB")
     res["launches"] = launches
     log(f"[frame] launches on the main path: {launches}")
+    # five Gaussian renders, each with a pair expansion; the face-mesh renders
+    # bin with bin_gaussians_sorted
+    ragged_binning = {"expand_pairs": 5, "chunk_slots": 5}
     expect = {
-        "test": {"composite_pairs_fwd_rg": 5},
-        "pair_major": {"composite_pairs_fwd_rg": 5, "composite_pairs_bwd_rg": 5},
-        "dense": {"composite_tiles_fwd_cm": 5, "composite_tiles_bwd_cm": 5},
+        "test": {"composite_pairs_fwd_rg": 5, **ragged_binning},
+        "pair_major": {"composite_pairs_fwd_rg": 5, "composite_pairs_bwd_rg": 5,
+                       **ragged_binning},
+        "dense": {"composite_tiles_fwd_cm": 5, "composite_tiles_bwd_cm": 5, "expand_pairs": 5},
     }
     for path, want in expect.items():
         # CPU tensors (a rehearsal) run the plain versions and launch nothing
@@ -1398,7 +1498,8 @@ def phase_train(device, steps=4, timing_iters=2, grow_to=1 << 16, start_kw=None,
     expect_launches("train", {
         "composite_tiles_fwd_cm": 5 * n_dense, "composite_tiles_bwd_cm": 5 * n_dense,
         "composite_pairs_fwd_rg": 5 * (len(hist) - n_dense),
-        "composite_pairs_bwd_rg": 5 * (len(hist) - n_dense)})
+        "composite_pairs_bwd_rg": 5 * (len(hist) - n_dense),
+        "expand_pairs": 5 * len(hist), "chunk_slots": 5 * (len(hist) - n_dense)})
     check("train_loop state", state.itr == len(hist) == tot_itr and state.opt_state.count == tot_itr
           and latest_checkpoint(model_dir) is not None
           and latest_checkpoint(model_dir).endswith(f"snapshot_{cfg.end_epoch - 1}.npz"),
@@ -1410,11 +1511,16 @@ def phase_train(device, steps=4, timing_iters=2, grow_to=1 << 16, start_kw=None,
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     totals, step_ms = [], []
-    for _ in range(steps):
+    binned = {}
+    for i in range(steps):
         sync()
         t0 = time.perf_counter()
-        state, losses = tl.train_step(state, bundle, frame, opt, cfg,
-                                      is_warmup=cfg.is_warmup(state.itr), settings=settings, bg=bg)
+        # the first step (left out of the mean) holds every binning kernel
+        # launch against its plain version
+        with checked_binning(binned) if i == 0 else contextlib.nullcontext():
+            state, losses = tl.train_step(state, bundle, frame, opt, cfg,
+                                          is_warmup=cfg.is_warmup(state.itr), settings=settings,
+                                          bg=bg)
         sync()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         totals.append(float(losses["total"]))
@@ -1427,6 +1533,12 @@ def phase_train(device, steps=4, timing_iters=2, grow_to=1 << 16, start_kw=None,
         res["peak_bytes"] = torch.cuda.max_memory_allocated()
         log(f"[train] peak memory allocated over {steps} steps "
             f"{res['peak_bytes'] / 2**30:.3f} GiB")
+    check_binning_launches(check, binned,
+                           {"expand_pairs": 5, "chunk_slots": 5 * settings.pair_major})
+    log(f"[train] the step's renders at pairs_per_gaussian={settings.pairs_per_gaussian}: "
+        f"expand_pairs Pm {[a[-1] for a, _ in binned.get('expand_pairs', [])]}")
+    binning_stats = binning_kernel_stats("train", binned, device)
+    del binned
     # the split of a step, on a copy (the pieces advance the state they get)
     probe = copy.deepcopy(state)
     t_lg = t_up = t_ts = 0.0
@@ -1504,7 +1616,8 @@ def phase_train(device, steps=4, timing_iters=2, grow_to=1 << 16, start_kw=None,
         v2_ms.append(1e3 * (time.perf_counter() - t0))
         res["ok"] &= finite(fork, losses)
     res["launches"]["train_v2"] = read_launches()
-    expect_launches("train_v2", {"composite_tiles_fwd_v2": 10, "composite_tiles_bwd_v2": 10})
+    expect_launches("train_v2", {"composite_tiles_fwd_v2": 10, "composite_tiles_bwd_v2": 10,
+                                 "expand_pairs": 10})
     log(f"[train] kernel_v=2 train_step ms: {[round(x, 2) for x in v2_ms]}")
     res["train_v2_step_ms"] = v2_ms[-1]
     del fork
@@ -1547,7 +1660,7 @@ def phase_train(device, steps=4, timing_iters=2, grow_to=1 << 16, start_kw=None,
     expect_launches("rowmajor_boundary", {"composite_tiles_fwd": 2, "composite_tiles_bwd": 2})
     del q, c, acc, tf
 
-    stat = {}
+    stat = dict(binning_stats)
     live_rows = int(torch.clamp(counts.long(), max=packed.shape[1]).sum())
     T, P = packed.shape[0], th * tw
     cases = (("composite_tiles_fwd_v2", "composite_tiles_bwd_v2", packed, None),
@@ -3239,8 +3352,11 @@ def phase_parallel(device, bands=4, timing_iters=2, scale_kw=None, cli_img=(1080
     modes = {"dense": api.RasterizeSettings(max_per_tile=dense_k, pairs_per_gaussian=ppg,
                                             max_tiles_per_gaussian=lanes),
              "pair_major": api.RasterizeSettings(pair_major=True, pairs_per_gaussian=ppg)}
+    # the pair-major bands bin with bin_gaussians_ragged (a pair expansion and
+    # chunk slots a band), the dense ones with bin_gaussians_sorted
     kernel_of = {"dense": ("composite_tiles_fwd_cm", "composite_tiles_bwd_cm"),
-                 "pair_major": ("composite_pairs_fwd_rg", "composite_pairs_bwd_rg")}
+                 "pair_major": ("composite_pairs_fwd_rg", "composite_pairs_bwd_rg")
+                 + BINNING_KERNELS}
     res["renders"] = {}
     for mode, s in modes.items():
         (ref, v_ref, g_ref), ms_single = timed(lambda *a: api.rasterize(*a, s))
@@ -3354,10 +3470,10 @@ def phase_parallel(device, bands=4, timing_iters=2, scale_kw=None, cli_img=(1080
         f"{par_launches}")
     if on_card:
         used = ("composite_tiles_fwd_cm", "composite_tiles_bwd_cm", "composite_pairs_fwd_rg",
-                "composite_pairs_bwd_rg")
+                "composite_pairs_bwd_rg") + BINNING_KERNELS
         check("launches", all(par_launches[k] > 0 for k in used)
               and all(v == 0 for k, v in par_launches.items() if k not in used),
-              "kernels 1, 2, 7 and 8 launched, no other")
+              "kernels 1, 2, 7 and 8 and the binning kernels launched, no other")
     return res
 
 
@@ -3506,10 +3622,12 @@ def main() -> int:
         # channel-major and pair-major forward kernels: measured on the animate
         # frame's windows, their backward kernels on the train-mode frame's
         # scene+human render; the row-major kernels on the trainer's; the
-        # probe kernels at the probe tools' defaults
+        # probe kernels at the probe tools' defaults; the binning kernels on
+        # the trainer's largest render (scene + human), and the animate
+        # frame's beside it
         if name in PROBE_KERNELS:
             st = prb["kernel_stats"][name]
-        elif name in RM_FWD_KERNELS + RM_BWD_KERNELS:
+        elif name in RM_FWD_KERNELS + RM_BWD_KERNELS + BINNING_KERNELS:
             st = trn["kernel_stats"][name]
         else:
             st = (anim if fwd else frm)["kernel_stats"][name]
@@ -3532,6 +3650,9 @@ def main() -> int:
         if name in PROBE_KERNELS[:2]:
             for k in ("ms_of", "variants_ms", "variants_bound_ms", "variants_registers"):
                 entry[k] = st[k]
+        elif name in BINNING_KERNELS:
+            entry["max_abs_err"] = max(st["max_abs_err"], anim["kernel_stats"][name]["max_abs_err"])
+            entry["by_size"] = {"train": st["by_size"], "animate": anim["kernel_stats"][name]}
         elif name not in PROBE_KERNELS:
             # the largest difference from the plain version, random windows included
             entry["max_abs_err"] = max(st["max_abs_err"], max(rnd[name].values()) if fwd

@@ -23,6 +23,7 @@ LIBRARIES: Dict[str, tuple] = {
     "composite": ("csrc/composite.cu",),
     "composite_bwd": ("csrc/composite_bwd.cu",),
     "windows": ("csrc/windows.cu",),
+    "binning": ("csrc/binning.cu",),
 }
 # included by the sources above; hashed into every library's name
 HEADERS = ("csrc/composite_common.cuh", "csrc/composite_probes.cuh")

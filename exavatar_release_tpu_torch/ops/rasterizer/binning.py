@@ -11,15 +11,21 @@ keeps the global depth order inside every tile. Every integer output
 (``order``, ``tile_indices``, ``pair_rank``, ``tid``, ``flags``,
 ``tile_counts``, ``n_dropped_pairs``) equals the JAX package's on the same
 screen-space inputs: the sorts are stable like ``jnp.argsort`` and
-``lax.sort``, and ``.at[].max(mode="drop")`` + ``cummax`` becomes a
-``scatter_reduce("amax")`` into a buffer with one spill slot + ``cummax``.
-Integer work runs in int64; outputs are int32 as in the JAX package.
+``lax.sort``, and where the JAX package scatters per-Gaussian values at each
+segment's first slot and forward-fills them with ``lax.cummax``, each pair
+slot (and each ragged chunk slot) here looks its owner up directly: the last
+depth rank (tile) whose exclusive offset is at or before the slot
+(``kernels.expand_pairs`` and ``kernels.chunk_slots``: a CUDA kernel, or
+``searchsorted`` and gathers on CPU tensors). Integer work runs in int64;
+outputs are int32 as in the JAX package.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
 import torch
+
+from . import kernels
 
 I64 = torch.int64
 I32 = torch.int32
@@ -52,20 +58,11 @@ def _tile_rect(m2d, rad, tile_h, tile_w, ny, nx, extent=None, tile_row_offset=0)
     return x_lo, x_hi, y_lo, y_hi
 
 
-def _fill_forward(starts_at: torch.Tensor, vals: torch.Tensor, size: int, init: int) -> torch.Tensor:
-    """Scatter ``vals`` (max-combined) at ``starts_at`` into a (size,) buffer
-    of ``init``, dropping indices >= size, then forward-fill by cummax."""
-    buf = torch.full((size + 1,), init, dtype=I64, device=vals.device)
-    buf.scatter_reduce_(0, torch.clamp(starts_at, max=size), vals, reduce="amax")
-    return torch.cummax(buf[:size], dim=0).values
-
-
 def _compact_sorted_pairs(mean2d, radius, depth, visible, img_shape, tile_h, tile_w,
                           max_pairs, extent, tile_row_offset=0):
     """Shared core of the compact/ragged binnings. Returns (order,
     tile_sorted, rank_sorted, starts, counts, total_pairs, ny, nx), all int64,
     with depth order preserved within every tile."""
-    n = mean2d.shape[0]
     dev = mean2d.device
     ny, nx = tile_grid(img_shape, tile_h, tile_w)
     num_tiles = ny * nx
@@ -83,42 +80,14 @@ def _compact_sorted_pairs(mean2d, radius, depth, visible, img_shape, tile_h, til
     span = torch.where(vis, w * (y_hi - y_lo), 0)
     offsets = torch.cumsum(span, 0) - span  # exclusive
 
-    # Segment expansion: scatter per-Gaussian values at each segment's first
-    # slot and forward-fill. cummax is a fill-forward when the scattered
-    # sequence is non-decreasing, forced for the rect fields by packing them
-    # under the strictly increasing rank in the high bits. The JAX package
-    # packs into int32, so the same bound holds here.
-    bny = int(ny).bit_length()
-    bw_rank = max(int(n).bit_length(), 1)
-    bw_rect = int(nx).bit_length() + bny
-    bw_w = int(nx + 1).bit_length()
-    assert bw_rank + max(bw_rect, bw_w) <= 31, (n, ny, nx)
-    rank = torch.arange(n, dtype=I64, device=dev)
-    pack_a = (rank << bw_rect) | (x_lo << bny) | y_lo
-    pack_b = (rank << bw_w) | w
-
-    starts_at = torch.where(span > 0, offsets, Pm)  # empty/overflow -> dropped
-    a = _fill_forward(starts_at, pack_a, Pm, -1)
-    b = _fill_forward(starts_at, pack_b, Pm, -1)
-    off_f = _fill_forward(starts_at, offsets, Pm, 0)
-    end_f = _fill_forward(starts_at, offsets + span, Pm, 0)
-
-    g_ok = a >= 0
-    g = torch.where(g_ok, a >> bw_rect, 0)
-    xlo_s = (a >> bny) & ((1 << int(nx).bit_length()) - 1)
-    ylo_s = a & ((1 << bny) - 1)
-    w_s = torch.clamp(b & ((1 << bw_w) - 1), min=1)
-
-    j = torch.arange(Pm, dtype=I64, device=dev)
-    e = j - off_f
-    valid = g_ok & (j < end_f)
-    ty = ylo_s + torch.div(e, w_s, rounding_mode="floor")
-    tx = xlo_s + torch.remainder(e, w_s)
-    tile = torch.where(valid, ty * nx + tx, num_tiles)
+    # Segment expansion: slot j belongs to the last rank whose offset is <= j
+    # (a zero-span rank shares its successor's offset); slots past the
+    # budget Pm are dropped, also inside a segment.
+    tile, rank = kernels.expand_pairs(offsets, span, x_lo, y_lo, w, nx, num_tiles, Pm)
 
     # single-key stable sort; depth rank rides along
     tile_sorted, perm = torch.sort(tile, stable=True)
-    rank_sorted = torch.where(valid, g, n)[perm]
+    rank_sorted = rank[perm]
 
     starts = torch.searchsorted(
         tile_sorted, torch.arange(num_tiles + 1, dtype=I64, device=dev)
@@ -307,8 +276,10 @@ def bin_gaussians_ragged(mean2d, radius, depth, visible, img_shape, tile_h=32,
     NC = Pa // chunk
 
     nchunks = torch.clamp(-torch.div(-counts, chunk, rounding_mode="floor"), min=1)
-    chunk_starts = torch.cumsum(nchunks, 0) - nchunks
-    total_chunks = chunk_starts[-1] + nchunks[-1]
+    # (T + 1,) exclusive sum, total last; strictly increasing since every
+    # tile owns >= 1 chunk
+    bounds = torch.cat([nchunks.new_zeros(1), torch.cumsum(nchunks, 0)])
+    chunk_starts = bounds[:-1]
 
     # scatter each sorted pair to its chunk-aligned slot
     j = torch.arange(Pm, dtype=I64, device=dev)
@@ -319,21 +290,12 @@ def bin_gaussians_ragged(mean2d, radius, depth, visible, img_shape, tile_h=32,
     pair_rank[dest] = rank_sorted
     pair_rank = pair_rank[:-1]
 
-    # per-chunk-slot metadata via scatter + forward-fill (chunk_starts is
-    # strictly increasing since every tile owns >= 1 chunk)
-    jc = torch.arange(NC, dtype=I64, device=dev)
-    tid = torch.zeros(NC + 1, dtype=I64, device=dev)
-    tid[torch.clamp(chunk_starts, max=NC)] = torch.arange(num_tiles, dtype=I64, device=dev)
-    tid = torch.cummax(tid[:NC], dim=0).values
-    first = jc == chunk_starts[tid]
-    last = jc == chunk_starts[tid] + nchunks[tid] - 1
-    valid = jc < total_chunks
-    flags = first.to(I64) + 2 * (last & valid).to(I64) + 4 * valid.to(I64)
+    tid, flags = kernels.chunk_slots(bounds, NC)  # each chunk slot's tile and flags
     return RaggedBinning(
         order=order.to(I32),
         pair_rank=pair_rank.to(I32),
-        tid=tid.to(I32),
-        flags=flags.to(I32),
+        tid=tid,
+        flags=flags,
         tile_counts=counts.to(I32),
         num_tiles=(ny, nx),
         n_dropped_pairs=torch.clamp(total_pairs - Pm, min=0).to(I32),

@@ -1169,9 +1169,114 @@ def tile_windows(starts, rank_pad, K: int, n: int) -> torch.Tensor:
 
 tile_windows.launches = 0
 
+
+# --------------------------------------------------------------------------
+# pair expansion of the compact and ragged binnings (csrc/binning.cu;
+# replaces no TPU kernel: the JAX package forward-fills with lax.cummax)
+# --------------------------------------------------------------------------
+
+
+def expand_pairs_plain(offsets, span, x_lo, y_lo, w, nx: int, num_tiles: int,
+                       Pm: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``expand_pairs``: each slot's owner by
+    ``searchsorted``, then gathers."""
+    n = offsets.shape[0]
+    j = torch.arange(Pm, dtype=torch.int64, device=offsets.device)
+    g = torch.searchsorted(offsets, j, right=True) - 1
+    e = j - offsets[g]
+    valid = e < span[g]
+    wg = torch.clamp(w[g], min=1)
+    ty = y_lo[g] + torch.div(e, wg, rounding_mode="floor")
+    tile = ty * nx + x_lo[g] + torch.remainder(e, wg)
+    return torch.where(valid, tile, num_tiles), torch.where(valid, g, n)
+
+
+def chunk_slots_plain(bounds, NC: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``chunk_slots``."""
+    T = bounds.shape[0] - 1
+    c = torch.arange(NC, dtype=torch.int64, device=bounds.device)
+    tid = torch.searchsorted(bounds[:T], c, right=True) - 1
+    valid = c < bounds[T]
+    last = (c == bounds[tid + 1] - 1) & valid
+    first = c == bounds[tid]
+    flags = first.to(torch.int32) + 2 * last.to(torch.int32) + 4 * valid.to(torch.int32)
+    return tid.to(torch.int32), flags
+
+
+def _lib_binning() -> ctypes.CDLL:
+    lib = cuda_build.load("binning")
+    lib.expand_pairs.argtypes = [_P] * 7 + [_I, ctypes.c_longlong, _I, _I, _P]
+    lib.chunk_slots.argtypes = [_P, _P, _P, _I, _I, _P]
+    for fn in (lib.expand_pairs, lib.chunk_slots):
+        fn.restype = _I
+    return lib
+
+
+def expand_pairs(offsets, span, x_lo, y_lo, w, nx: int, num_tiles: int,
+                 Pm: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pair budget's slots, each with its owner: the last depth rank g
+    whose exclusive offset is <= the slot j. A slot inside g's segment (j <
+    offsets[g] + span[g]) gets its tile key, (y_lo + e // w) * nx + x_lo +
+    e % w at e = j - offsets[g], and g; any other num_tiles and n. offsets
+    (n,) i64 non-decreasing from 0, span, x_lo, y_lo, w (n,) i64, n >= 1 ->
+    (tile, rank), (Pm,) i64 each."""
+    if _on_cpu(offsets):
+        return expand_pairs_plain(offsets, span, x_lo, y_lo, w, nx, num_tiles, Pm)
+    n = offsets.shape[0]
+    dev = offsets.device
+    for name, x in (("offsets", offsets), ("span", span), ("x_lo", x_lo), ("y_lo", y_lo),
+                    ("w", w)):
+        _check(name, x, torch.int64, (n,), dev)
+    if n == 0 or num_tiles >= 1 << 31:
+        raise ValueError(f"expand_pairs takes 1 to 2^31 - 1 Gaussians and tiles, got {n}, "
+                         f"{num_tiles}")
+    tile = torch.empty(Pm, dtype=torch.int64, device=dev)
+    rank = torch.empty(Pm, dtype=torch.int64, device=dev)
+    if Pm == 0:
+        return tile, rank
+    with torch.cuda.device(dev):
+        rc = _lib_binning().expand_pairs(
+            offsets.data_ptr(), span.data_ptr(), x_lo.data_ptr(), y_lo.data_ptr(), w.data_ptr(),
+            tile.data_ptr(), rank.data_ptr(), n, Pm, nx, num_tiles,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "expand_pairs")
+    expand_pairs.launches += 1
+    return tile, rank
+
+
+expand_pairs.launches = 0
+
+
+def chunk_slots(bounds, NC: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each of NC chunk slots' tile, the last t with bounds[t] <= the slot c,
+    and its flags: bit0 c == bounds[t] (first), bit1 c == bounds[t + 1] - 1
+    (last) and bit2 c < bounds[T] (valid), the bits' meaning of the ragged
+    layout. bounds (T + 1,) i64 strictly increasing from 0 -> (tid, flags),
+    (NC,) i32 each."""
+    if _on_cpu(bounds):
+        return chunk_slots_plain(bounds, NC)
+    T = bounds.shape[0] - 1
+    dev = bounds.device
+    _check("bounds", bounds, torch.int64, (T + 1,), dev)
+    if T < 1:
+        raise ValueError("chunk_slots takes at least one tile")
+    tid = torch.empty(NC, dtype=torch.int32, device=dev)
+    flags = torch.empty(NC, dtype=torch.int32, device=dev)
+    if NC == 0:
+        return tid, flags
+    with torch.cuda.device(dev):
+        rc = _lib_binning().chunk_slots(bounds.data_ptr(), tid.data_ptr(), flags.data_ptr(), T,
+                                        NC, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "chunk_slots")
+    chunk_slots.launches += 1
+    return tid, flags
+
+
+chunk_slots.launches = 0
+
 # every kernel wrapper of this module, for callers that reset or read the
 # launch counts
 KERNELS = (composite_tiles_fwd_cm, composite_tiles_bwd_cm, composite_tiles_fwd_v2,
            composite_tiles_bwd_v2, composite_tiles_fwd, composite_tiles_bwd,
            composite_pairs_fwd_rg, composite_pairs_bwd_rg, composite_tiles_fwd_variant,
-           composite_tiles_bwd_variant, tile_windows)
+           composite_tiles_bwd_variant, tile_windows, expand_pairs, chunk_slots)

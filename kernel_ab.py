@@ -30,6 +30,19 @@ an empty kernel (the launch floor; in checkouts whose ``windows.cu`` has
 one); the wrapper's host ms per call; and the device ms of its plain
 version (binning's gather) in a graph of 20 calls.
 
+    python3 kernel_ab.py --binning [ROOT]
+
+times the pair binning of ROOT at the main path's three render sizes (the
+human's 164,379 Gaussians, and with the 32,768 or 131,072 Gaussians of the
+two scenes' capacities; a budget of 16 pairs each, rounded up to the chunk
+of 256) on seeded screen-space inputs at 1080x1920 in tiles of 32x128
+(radii 1-80 px, a tenth culled): ``bin_gaussians_ragged`` whole
+(``ragged_ms``, CUDA events around 10 calls, the least of three), and each
+of its two kernels, ``expand_pairs`` and ``chunk_slots``, on that call's own
+inputs (``binning_kernel_times``: the kernel and its plain version, each
+``graph_ms``, both outputs bit for bit, and the bytes bound). Prints the
+card's name and power limit and one JSON line.
+
     python3 kernel_ab.py --sass ROOT_A ROOT_B
 
 compares, kernel by kernel, the SASS (``cuobjdump -sass``, addresses and
@@ -246,10 +259,99 @@ def animate_frames(cs, reps: int = 2):
     return run
 
 
+# Gaussians a render at the main path's pair budgets (Pm 2.63M, 3.15M, 4.73M)
+BINNING_SHAPES = {"human": 164_379, "human_s20k": 197_147, "human_s131k": 295_451}
+
+
+def binning_inputs(n: int, seed: int, device="cuda"):
+    """Seeded screen-space (mean2d, radius, depth, visible, extent) at
+    1080x1920: means over and around the image, radii 1-80 px."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    radius = np.ceil(np.exp(rng.uniform(np.log(1.0), np.log(80.0), n)))
+    arrays = (rng.uniform([-50.0, -50.0], [1970.0, 1130.0], (n, 2)), radius,
+              rng.uniform(0.5, 9.0, n), rng.uniform(size=n) > 0.1,
+              radius[:, None] * rng.uniform(0.3, 1.0, (n, 2)))
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device, torch.bool if a.dtype == bool
+                                                         else torch.float32) for a in arrays]
+
+
+def binning_kernel_times(kn, name: str, args) -> dict:
+    """``name`` (``expand_pairs`` or ``chunk_slots``) on the inputs ``args``
+    a binning gave it: ``ms``, the kernel alone through its C entry
+    (``graph_ms``), ``plain_ms``, its plain version (``graph_ms`` of 20),
+    ``equal``, both outputs bit for bit, and ``bound_ms`` by bytes: 16 B a
+    slot written and 40 B a Gaussian read (``expand_pairs``), 8 B a chunk
+    slot written and 8 B a bound read (``chunk_slots``)."""
+    import torch
+
+    lib = kn._lib_binning()
+    plain = getattr(kn, f"{name}_plain")
+    if name == "expand_pairs":
+        offsets, span, x_lo, y_lo, w, nx, num_tiles, Pm = args
+        n = offsets.shape[0]
+        outs = [torch.empty(Pm, dtype=torch.int64, device="cuda") for _ in range(2)]
+        ptrs = [x.data_ptr() for x in (offsets, span, x_lo, y_lo, w, *outs)]
+        entry = lambda stream: lib.expand_pairs(*ptrs, n, Pm, nx, num_tiles, stream)
+        res = {"n": n, "Pm": Pm, "bound_ms": 1e3 * (16 * Pm + 40 * n) / 3.35e12}
+    else:
+        bounds, NC = args
+        T = bounds.shape[0] - 1
+        outs = [torch.empty(NC, dtype=torch.int32, device="cuda") for _ in range(2)]
+        entry = lambda stream: lib.chunk_slots(bounds.data_ptr(), outs[0].data_ptr(),
+                                               outs[1].data_ptr(), T, NC, stream)
+        res = {"T": T, "NC": NC, "bound_ms": 1e3 * (8 * NC + 8 * (T + 1)) / 3.35e12}
+
+    def launch(stream):
+        if entry(stream) != 0:
+            raise RuntimeError(f"{name} launch failed")
+
+    res["ms"] = graph_ms(launch)
+    res["plain_ms"] = graph_ms(lambda stream: plain(*args), 20)
+    res["equal"] = all(torch.equal(a, b) for a, b in zip(outs, plain(*args)))
+    res["bound_by"] = "bytes"
+    return res
+
+
+def binning_times(n: int) -> dict:
+    import torch
+
+    import chip_smoke as cs
+    from exavatar_release_tpu_torch.ops.rasterizer import binning as bnm
+    from exavatar_release_tpu_torch.ops.rasterizer import kernels as kn
+
+    img, tile, chunk = (1080, 1920), (32, 128), 256
+    m2d, rad, depth, vis, ext = binning_inputs(n, seed=n)
+    run = lambda: bnm.bin_gaussians_ragged(m2d, rad, depth, vis, img, *tile, chunk=chunk,
+                                           max_pairs=16 * n, extent=ext)
+    calls = {}
+    with cs.checked_binning(calls):  # the kernels' inputs, as the binning makes them
+        run()
+    run()
+    torch.cuda.synchronize()
+    res = {"n": n, "ragged_ms": min(cs.cuda_ms(run, 10) for _ in range(3))}
+    for name, launches in calls.items():
+        args, err = launches[0]
+        res[name] = {"max_abs_err": err, **binning_kernel_times(kn, name, args)}
+    res["pairs"] = int(calls["expand_pairs"][0][0][1].sum())
+    return res
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--sass"]:
         print(json.dumps(compare_sass(os.path.abspath(args[1]), os.path.abspath(args[2]))))
+        return 0
+    if args[:1] == ["--binning"]:
+        root = os.path.abspath(args[1] if len(args) > 1 else os.path.dirname(__file__))
+        sys.path.insert(0, root)
+        import chip_smoke as cs
+
+        res = {k: binning_times(n) for k, n in BINNING_SHAPES.items()}
+        print(cs.card_line())
+        print(json.dumps({"root": root, "binning": res}))
         return 0
     root = os.path.abspath(args[0] if args else os.path.dirname(__file__))
     sys.path.insert(0, root)

@@ -2,8 +2,8 @@
 backward, channel-major, pair-major and row-major, the stage probes and the
 window build, each against its plain PyTorch version
 on the same CUDA tensors; the wrappers' input checks, their launch counters,
-a render's gradients against the same render on CPU tensors, and a failed
-build. Marked ``cuda``; skips
+a render's gradients against the same render on CPU tensors, a failed
+build, and the binnings' pair expansion against its plain version. Marked ``cuda``; skips
 where there is no GPU.
 
 This file imports neither JAX nor the JAX package, so that it runs on a
@@ -13,6 +13,7 @@ machine with PyTorch alone (tests/conftest.py imports JAX):
 """
 import os.path as osp
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -543,7 +544,8 @@ def test_row_major_wrapper_rejects(rm_scene, bad):
 def test_render_kernel_v2_card_vs_cpu(dev):
     """``rasterize(kernel_v=2)``: the row-major kernels on the card against
     their plain versions on CPU tensors; one v2 forward and one v2 backward
-    launch, none of the other kernels."""
+    launch, one pair expansion (the compact binning), none of the other
+    kernels."""
     from exavatar_release_tpu_torch.core.camera import Camera
     from exavatar_release_tpu_torch.ops.rasterizer import RasterizeSettings, rasterize
 
@@ -573,8 +575,8 @@ def test_render_kernel_v2_card_vs_cpu(dev):
     before = {k: k.launches for k in kn.KERNELS}
     got = grads(dev)
     after = {k.__name__: k.launches - before[k] for k in kn.KERNELS}
-    assert after == {k.__name__: int(k in (kn.composite_tiles_fwd_v2, kn.composite_tiles_bwd_v2))
-                     for k in kn.KERNELS}
+    used = (kn.composite_tiles_fwd_v2, kn.composite_tiles_bwd_v2, kn.expand_pairs)
+    assert after == {k.__name__: int(k in used) for k in kn.KERNELS}
     # The packing's transpose forms d/d(gx) as A (sum dq lx - gx sum dq) + ...:
     # sums of size |dq| * 128 px cancel down to |dq| * a few px, and the conic's
     # gradient cancels twice, so the last-bit differences between the kernel's
@@ -626,13 +628,15 @@ def test_band_render_on_a_local_mesh_of_the_card(dev, pair_major):
         return o, torch.autograd.grad(loss, args)
 
     want, g_want = run(lambda *a: rasterize(*a, s))
-    used = (("composite_pairs_fwd_rg", "composite_pairs_bwd_rg") if pair_major
-            else ("composite_tiles_fwd_cm", "composite_tiles_bwd_cm"))
+    used = (("composite_pairs_fwd_rg", "composite_pairs_bwd_rg", "expand_pairs", "chunk_slots")
+            if pair_major else ("composite_tiles_fwd_cm", "composite_tiles_bwd_cm"))
     for fn in (rasterize_sharded, rasterize_gaussian_sharded):
         before = {k: k.launches for k in kn.KERNELS}
         got, g_got = run(lambda *a: fn(*a, mesh, "tile", s))
         torch.cuda.synchronize()
-        # one forward and one backward launch for each of the four bands
+        # one forward and one backward launch for each of the four bands,
+        # and pair-major one pair expansion and one chunk-slot launch (the
+        # dense bands bin with bin_gaussians_sorted)
         made = {k.__name__: k.launches - before[k] for k in kn.KERNELS}
         assert made == {k: 4 if k in used else 0 for k in made}, (fn.__name__, made)
         for k, tol in chip_smoke.TOL.items():
@@ -850,3 +854,124 @@ def test_tile_windows_past_2_31_entries(dev):
         assert torch.equal(got[-8:], want), K
         assert torch.equal(got[:4, :6], kn.tile_windows_plain(starts[:5], rank, 6, n)), K
         del got
+
+
+# --------------------------------------------------------------------------
+# the binnings' pair expansion and chunk slots (csrc/binning.cu)
+# --------------------------------------------------------------------------
+
+# case: (binning, Gaussians, image, tile, pair budget (0: 16 per Gaussian),
+# chunk, tile-row offset)
+EXPAND_CASES = {
+    "ample": ("compact", 3000, (1080, 1920), (32, 128), 0, 0, 0),
+    "cut_mid_segment": ("compact", 3000, (1080, 1920), (32, 128), 2999, 0, 0),
+    "zero_span_between": ("compact", 3000, (1080, 1920), (32, 128), 0, 0, 0),
+    "all_invisible": ("compact", 500, (1080, 1920), (32, 128), 0, 0, 0),
+    "n1": ("compact", 1, (1080, 1920), (32, 128), 0, 0, 0),
+    "pm_not_block_multiple": ("compact", 2000, (1080, 1920), (32, 128), 256 * 37 + 41, 0, 0),
+    "band": ("ragged", 3000, (270, 1920), (32, 128), 0, 256, 3),
+    "chunk128": ("ragged", 3000, (1080, 1920), (32, 128), 0, 128, 0),
+    "chunk256": ("ragged", 3000, (1080, 1920), (32, 128), 0, 256, 0),
+    "main_shape": ("ragged", 164_379, (1080, 1920), (32, 128), 0, 256, 0),
+}
+
+
+def _expand_screen(case, n, img, y0, dev):
+    """Seeded screen-space inputs: means over and around the image, whose
+    first row is the global row y0, radii of 0.5-120 px, tight extents
+    below them."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    H, W = img
+    mean2d = rng.uniform([-100.0, y0 - 100.0], [W + 100.0, y0 + H + 100.0], (n, 2))
+    radius = np.ceil(np.exp(rng.uniform(np.log(0.5), np.log(120.0), n)))
+    extent = radius[:, None] * rng.uniform(0.3, 1.0, (n, 2))
+    visible = rng.uniform(size=n) > 0.1
+    if case == "zero_span_between":
+        radius[rng.uniform(size=n) < 0.3] = 0.0
+        visible &= rng.uniform(size=n) > 0.2
+    if case == "all_invisible":
+        visible[:] = False
+    to = lambda a, t: torch.from_numpy(np.ascontiguousarray(a)).to(dev, t)
+    return (to(mean2d, torch.float32), to(radius, torch.float32),
+            to(rng.uniform(0.5, 9.0, n), torch.float32), to(visible, torch.bool),
+            to(extent, torch.float32))
+
+
+@pytest.mark.parametrize("case", list(EXPAND_CASES))
+def test_expand_pairs_equals_plain(dev, case, monkeypatch):
+    """Every launch a card binning makes, of ``expand_pairs`` and (ragged)
+    ``chunk_slots``, bit for bit against the plain version on the same CUDA
+    tensors; and the binning's integers against the same binning on CPU
+    tensors."""
+    from exavatar_release_tpu_torch.ops.rasterizer import binning as bnm
+
+    kind, n, img, tile, max_pairs, chunk, row_offset = EXPAND_CASES[case]
+    mean2d, radius, depth, visible, extent = _expand_screen(case, n, img, row_offset * tile[0],
+                                                            dev)
+    calls = []
+
+    def recorder(name):
+        def record(*args):
+            out = getattr(kn, name)(*args)
+            calls.append((name, args, out))
+            return out
+        return record
+
+    monkeypatch.setattr(bnm, "kernels", SimpleNamespace(
+        expand_pairs=recorder("expand_pairs"), chunk_slots=recorder("chunk_slots")))
+    budget = max_pairs or 16 * n
+    if kind == "compact":
+        fn = lambda m, r, d, v, e: bnm.bin_gaussians_compact(
+            m, r, d, v, img, *tile, max_per_tile=1024, max_pairs=budget, extent=e)
+    else:
+        fn = lambda m, r, d, v, e: bnm.bin_gaussians_ragged(
+            m, r, d, v, img, *tile, chunk=chunk, max_pairs=budget, extent=e,
+            tile_row_offset=row_offset)
+    got = fn(mean2d, radius, depth, visible, extent)
+    torch.cuda.synchronize()
+    assert [c[0] for c in calls] == (["expand_pairs"] + ["chunk_slots"] * (kind == "ragged"))
+    for name, args, out in calls:
+        want = getattr(kn, f"{name}_plain")(*args)
+        assert all(torch.equal(a, b) for a, b in zip(out, want)), name
+    offsets, span = calls[0][1][:2]
+    Pm = calls[0][1][-1]
+    if case == "cut_mid_segment":  # a segment crosses the budget's end
+        assert bool(((offsets < Pm) & (offsets + span > Pm)).any())
+    if case == "all_invisible":
+        assert int(span.sum()) == 0
+    if case == "zero_span_between":
+        live = (span > 0).nonzero()[:, 0]
+        assert bool((span[int(live[0]):int(live[-1])] == 0).any())
+    if case == "pm_not_block_multiple":
+        assert Pm % 256
+    monkeypatch.undo()
+    want = fn(*(x.cpu() for x in (mean2d, radius, depth, visible, extent)))
+    for f in got._fields:
+        if f != "num_tiles":
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), (case, f)
+
+
+@pytest.mark.parametrize("pair_major", [False, True], ids=["dense", "pair_major"])
+def test_expand_pairs_launches_once_per_prepare(dev, pair_major):
+    """``api.prepare`` expands the pairs in one launch, dense or pair-major,
+    and the pair-major binning lays out its chunk slots in one more."""
+    from exavatar_release_tpu_torch.core.camera import Camera
+    from exavatar_release_tpu_torch.ops.rasterizer import RasterizeSettings, api
+
+    rng = np.random.default_rng(9)
+    n, H, W, f = 400, 96, 256, 150.0
+    z = rng.uniform(2.0, 4.0, (n, 1))
+    d = [np.concatenate([rng.uniform(-0.5, 0.5, (n, 1)) * (W / f) * z,
+                         rng.uniform(-0.5, 0.5, (n, 1)) * (H / f) * z, z], 1),
+         np.exp(rng.uniform(np.log(0.02), np.log(0.1), (n, 3))), rng.normal(size=(n, 4)),
+         rng.uniform(0.3, 1.0, (n, 1)), rng.uniform(0, 1, (n, 3))]
+    d = [torch.from_numpy(v.astype(np.float32)).to(dev) for v in d]
+    cam = Camera(torch.eye(3, device=dev), torch.zeros(3, device=dev),
+                 torch.tensor([f, f], device=dev), torch.tensor([W / 2.0, H / 2.0], device=dev))
+    s = RasterizeSettings(max_per_tile=512, pair_major=pair_major)
+    before = (kn.expand_pairs.launches, kn.chunk_slots.launches)
+    with torch.no_grad():
+        api.prepare(*d, torch.ones(n, dtype=torch.bool, device=dev), cam, (H, W), s)
+    torch.cuda.synchronize()
+    assert (kn.expand_pairs.launches - before[0], kn.chunk_slots.launches - before[1]) == (
+        1, int(pair_major))

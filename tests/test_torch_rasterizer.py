@@ -169,6 +169,72 @@ def test_binning_ragged_integers(scene, max_pairs):
         np.testing.assert_array_equal(g, w, err_msg=f)
 
 
+OWNER_SHAPE, OWNER_TILE, OWNER_CHUNK = (256, 512), (8, 16), 128
+
+
+def _owner_rule_inputs(case):
+    """Screen-space inputs where each pair slot's owner is the last depth
+    rank at or before it, and (max_pairs, what to assert of the spans):
+    ``mid_segment`` cuts the budget, a multiple of the chunk, strictly inside
+    a Gaussian's segment; ``zero_span_lead`` puts six zero-span Gaussians
+    (three of radius 0, three off screen) nearest the camera, more between
+    live ones, and two culled ones at the end of the order."""
+    rng = np.random.default_rng(31)
+    n = 80
+    s = dict(mean2d=rng.uniform([0, 0], [512, 256], (n, 2)),
+             radius=np.ceil(rng.uniform(1.0, 30.0, n)), depth=rng.uniform(1.0, 9.0, n),
+             in_frustum=np.ones(n, bool))
+    s["mean2d"][5:8] = [300.0, 120.0]  # three large ones
+    s["radius"][5:8] = 90.0
+    if case == "zero_span_lead":
+        s["depth"][:6] = np.linspace(0.1, 0.6, 6)
+        s["radius"][:3] = 0.0
+        s["mean2d"][3:6] = [-800.0, 100.0]
+        s["radius"][40:44] = 0.0
+        s["in_frustum"][[20, 50]] = False
+    s = {k: v.astype(np.float32) if v.dtype != bool else v for k, v in s.items()}
+    t = {k: torch.from_numpy(v) for k, v in s.items()}
+    order = torch.argsort(torch.where(t["in_frustum"], t["depth"], torch.inf), stable=True)
+    ny, nx = tb.tile_grid(OWNER_SHAPE, *OWNER_TILE)
+    x_lo, x_hi, y_lo, y_hi = tb._tile_rect(t["mean2d"][order], t["radius"][order], *OWNER_TILE,
+                                           ny, nx)
+    vis = t["in_frustum"][order] & (t["radius"][order] > 0)
+    span = torch.where(vis, (x_hi - x_lo) * (y_hi - y_lo), 0)
+    offsets = torch.cumsum(span, 0) - span
+    if case == "zero_span_lead":
+        assert bool((span[:6] == 0).all()) and int(span[6]) > 0
+        assert int((span[6:] == 0).sum()) >= 6
+        return s, int(span.sum()) + 1  # ample
+    g = next(i for i in range(1, n) if span[i] > OWNER_CHUNK and offsets[i] > 0)
+    cut = (int(offsets[g]) // OWNER_CHUNK + 1) * OWNER_CHUNK
+    assert int(offsets[g]) < cut < int(offsets[g] + span[g]) < int(span.sum())
+    return s, cut
+
+
+@pytest.mark.parametrize("binning", ["compact", "ragged"])
+@pytest.mark.parametrize("case", ["mid_segment", "zero_span_lead"])
+def test_binning_owner_rule_integers(case, binning):
+    """The pair slots' owner lookup against the JAX package's forward fill
+    where they could part: a budget that ends inside a segment, and zero-span
+    Gaussians that share their successor's offset, leading the order."""
+    s, mp = _owner_rule_inputs(case)
+    args = [s[k] for k in ("mean2d", "radius", "depth", "in_frustum")]
+    kw = dict(img_shape=OWNER_SHAPE, tile_h=OWNER_TILE[0], tile_w=OWNER_TILE[1], max_pairs=mp)
+    if binning == "compact":
+        kw["max_per_tile"] = 24
+        fields = ("order", "tile_indices", "tile_counts", "n_dropped_pairs", "n_truncated")
+    else:
+        kw["chunk"] = OWNER_CHUNK
+        fields = ("order", "pair_rank", "tid", "flags", "tile_counts", "n_dropped_pairs")
+    want = getattr(jb, f"bin_gaussians_{binning}")(*map(jnp.asarray, args), **kw)
+    got = getattr(tb, f"bin_gaussians_{binning}")(*map(torch.from_numpy, args), **kw)
+    assert (int(want.n_dropped_pairs) > 0) == (case == "mid_segment")
+    for f in fields:
+        g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+        assert g.dtype == w.dtype, f
+        np.testing.assert_array_equal(g, w, err_msg=f)
+
+
 def _full_from_ref(accum, tfinal, bg):
     accum, tfinal = np.asarray(accum), np.asarray(tfinal)
     rgb = accum[..., :3] + tfinal * bg[None, None, :]
