@@ -1,4 +1,7 @@
-"""Shared synthetic end-to-end avatar setup for model/train tests."""
+"""Shared synthetic end-to-end avatar setup for model/train tests.
+
+Its big initialisers run as one program each (tests/fast_compile.py): run op
+by op they cost ~400 small XLA compiles (~25 s of every build)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +14,7 @@ from exavatar_release_tpu.avatar.model import (
     AvatarTrainables,
     FrameData,
     build_statics,
+    forward_frame,
 )
 from exavatar_release_tpu.avatar.param_dict import init_param_frames
 from exavatar_release_tpu.core.camera import Camera
@@ -21,6 +25,23 @@ from exavatar_release_tpu.models.smplx import (
 )
 from exavatar_release_tpu.ops.lpips import init_lpips_random
 from exavatar_release_tpu.ops.rasterizer.api import RasterizeSettings
+from exavatar_release_tpu.train.loop import ModelBundle, train_step
+from fast_compile import fast_jit
+
+# forward_frame as one program: run op by op, it costs a compile per operation
+forward_frame_program = fast_jit(
+    forward_frame,
+    static_argnames=("cfg", "is_warmup", "mode", "fit_pose_to_test", "settings"),
+)
+# the package's train_step fast-compiled, for the tests that run one step a
+# compile: it compiles in ~60% of the time of the package's and runs ~7x slower
+train_step_program = fast_jit(
+    train_step.__wrapped__,
+    static_argnames=("optimizer", "cfg", "is_warmup", "fit_pose_to_test", "settings"),
+)
+fast_init_human = fast_jit(init_human, static_argnums=(3,))
+_init_lpips_random = fast_jit(init_lpips_random, static_argnums=(1,))
+_init_from_point_cloud = fast_jit(sc.init_from_point_cloud, static_argnums=(4,))
 
 
 def synthetic_face_mesh(prior):
@@ -44,7 +65,9 @@ def synthetic_face_mesh(prior):
 class AvatarSetup:
     def __init__(self, seed=0, H=48, W=64, n_frames=2, capacity=512,
                  n_scene=200, lpips_net="alex", rings=8, segs=12,
-                 backend="ref", max_per_tile=512, focal=60.0):
+                 backend="ref", max_per_tile=512, focal=60.0,
+                 init_human=fast_init_human):
+        """``init_human``: the (jitted) initialiser of the human's weights."""
         self.cfg = AvatarConfig(
             triplane_ch=8, triplane_res=16, scene_capacity=capacity
         )
@@ -68,7 +91,7 @@ class AvatarSetup:
              rng.uniform(3.0, 5, n_scene)], 1
         ).astype(np.float32)
         rgbs = rng.uniform(0, 1, (n_scene, 3)).astype(np.float32)
-        self.scene_state = sc.init_from_point_cloud(
+        self.scene_state = _init_from_point_cloud(
             jnp.asarray(pts), jnp.asarray(rgbs), jnp.zeros(3), jnp.asarray(3.0),
             capacity,
         )
@@ -87,13 +110,14 @@ class AvatarSetup:
             }
             for _ in range(n_frames)
         ]
-        self.param_frames = init_param_frames(frames)
+        # its numpy stacking needs concrete poses: they enter as constants
+        self.param_frames = fast_jit(lambda: init_param_frames(frames))()
         self.trainables = AvatarTrainables(
             scene=self.scene_state.params,
             human=self.human_params,
             frames=self.param_frames,
         )
-        self.lpips = init_lpips_random(jax.random.PRNGKey(1), lpips_net)
+        self.lpips = _init_lpips_random(jax.random.PRNGKey(1), lpips_net)
         self.face_texture = jnp.asarray(rng.uniform(0, 1, (3, 16, 16)).astype(np.float32))
         self.face_texture_mask = jnp.ones((1, 16, 16))
         self.init_joint_offset = jnp.zeros((a.num_joints, 3))
@@ -120,3 +144,23 @@ class AvatarSetup:
                     frame_row=jnp.asarray(i),
                 )
             )
+
+    def forward_inputs(self, bg, frame=0, trainables=None):
+        """``forward_frame``'s arguments up to ``bg`` for frame ``frame``."""
+        return (
+            self.trainables if trainables is None else trainables,
+            self.scene_state.aux, self.buffers, self.prior, self.statics,
+            self.id_info, self.lpips, self.face_texture,
+            self.face_texture_mask, self.init_joint_offset,
+            self.frame_data[frame], jnp.asarray(bg),
+        )
+
+    def bundle(self):
+        """The train steps' ModelBundle of this avatar."""
+        return ModelBundle(
+            buffers=self.buffers, prior=self.prior, statics=self.statics,
+            id_info=self.id_info, lpips=self.lpips,
+            face_texture=self.face_texture,
+            face_texture_mask=self.face_texture_mask,
+            init_joint_offset=self.init_joint_offset,
+        )

@@ -52,10 +52,12 @@ def rng():
 
 @pytest.fixture(autouse=True, scope="module")
 def _clear_jax_caches_between_modules():
-    """The XLA CPU compiler segfaults after enough compilations accumulate
-    in one process (reproducible: parallel+train+avatar_model in sequence
-    crash inside backend_compile, each pair passes). Dropping compiled
-    executables between modules keeps the per-process compile population
-    bounded; compiles within a module still share."""
+    """The XLA CPU compiler aborts after enough compilations accumulate in
+    one process (reproducible without this fixture, jax 0.9.0:
+    test_parallel_{tile,gaussian,train}.py, test_train.py and
+    test_train_governor.py in sequence abort inside backend_compile_and_load
+    in the governor test). Dropping compiled executables between modules
+    keeps the per-process compile population bounded; compiles within a
+    module still share."""
     yield
     jax.clear_caches()

@@ -157,16 +157,11 @@ if stage == "collectives":
 elif stage == "train":
     from avatar_fixture import AvatarSetup
     from exavatar_release_tpu.parallel.dp_tile_train import dp_tile_train_step
-    from exavatar_release_tpu.train.loop import ModelBundle, init_train_state
+    from exavatar_release_tpu.train.loop import init_train_state
     from exavatar_release_tpu.train.optim import make_optimizer
 
     s = AvatarSetup(H=32, W=48, capacity=128, n_scene=60, n_frames=2)
-    bundle = ModelBundle(
-        buffers=s.buffers, prior=s.prior, statics=s.statics,
-        id_info=s.id_info, lpips=s.lpips, face_texture=s.face_texture,
-        face_texture_mask=s.face_texture_mask,
-        init_joint_offset=s.init_joint_offset,
-    )
+    bundle = s.bundle()
     opt = make_optimizer(s.trainables, s.cfg, 3.0, tot_itr=100)
     state = init_train_state(s.trainables, s.scene_state.aux, opt)
     batch = jax.tree.map(lambda *xs: jnp.stack(xs), *s.frame_data)

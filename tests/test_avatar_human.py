@@ -9,7 +9,6 @@ from exavatar_release_tpu.avatar.human import (
     clamp_warmup_scale,
     extract_tri_feature,
     human_forward,
-    init_human,
     neutral_pose_human,
     zero_pose_joints,
 )
@@ -23,8 +22,14 @@ from exavatar_release_tpu.models.smplx import (
     build_prior,
     synthetic_smplx_assets,
 )
+from avatar_fixture import fast_init_human
+from fast_compile import fast_jit
 
 CFG = AvatarConfig(triplane_ch=8, triplane_res=16)
+# the forward as one program (eager JAX compiles every operation on its own)
+_human_forward = fast_jit(
+    human_forward, static_argnames=("cfg", "is_world_coord", "knn_chunk")
+)
 
 
 @pytest.fixture(scope="module")
@@ -40,7 +45,7 @@ def id_info(prior):
 
 @pytest.fixture(scope="module")
 def human(prior, id_info):
-    return init_human(jax.random.PRNGKey(0), prior, id_info, CFG)
+    return fast_init_human(jax.random.PRNGKey(0), prior, id_info, CFG)
 
 
 def _rand_pose(rng, num_expr, scale=0.3):
@@ -106,7 +111,7 @@ class TestForward:
     def test_full_forward_shapes_and_flags(self, prior, id_info, human, rng):
         params, buffers = human
         pose = _rand_pose(rng, prior.assets.num_expr)
-        out = human_forward(
+        out = _human_forward(
             params, buffers, prior, pose, id_info,
             jnp.eye(3), jnp.zeros(3), CFG, knn_chunk=512,
         )
@@ -131,7 +136,7 @@ class TestForward:
             lhand_pose=jnp.zeros((15, 3)), rhand_pose=jnp.zeros((15, 3)),
             expr=jnp.zeros(a.num_expr), trans=jnp.zeros(3),
         )
-        out = human_forward(
+        out = _human_forward(
             params, buffers, prior, zero, id_info,
             jnp.eye(3), jnp.zeros(3), CFG, is_world_coord=True, knn_chunk=512,
         )
@@ -156,11 +161,11 @@ class TestForward:
             np.linalg.qr(rng.normal(size=(3, 3)))[0].astype(np.float32)
         )
         t = jnp.asarray([0.3, -0.2, 0.5])
-        out_cam = human_forward(
+        out_cam = _human_forward(
             params, buffers, prior, pose, id_info, R, t, CFG,
             is_world_coord=True, knn_chunk=512,
         )
-        out_world = human_forward(
+        out_world = _human_forward(
             params, buffers, prior, pose, id_info, R, t, CFG,
             is_world_coord=False, knn_chunk=512,
         )
@@ -172,7 +177,7 @@ class TestForward:
     def test_warmup_clamp(self, prior, id_info, human, rng):
         params, buffers = human
         pose = _rand_pose(rng, prior.assets.num_expr)
-        out = human_forward(
+        out = _human_forward(
             params, buffers, prior, pose, id_info, jnp.eye(3), jnp.zeros(3),
             CFG, knn_chunk=512,
         )
@@ -193,7 +198,7 @@ class TestForward:
             )
             return jnp.sum(out.assets.rgb ** 2) + jnp.sum(out.assets.mean_3d ** 2)
 
-        g = jax.grad(loss)(params.triplane)
+        g = fast_jit(jax.grad(loss))(params.triplane)
         assert np.isfinite(np.asarray(g)).all()
         assert np.any(np.asarray(g) != 0)
 

@@ -5,7 +5,8 @@ import numpy as np
 import pytest
 
 from exavatar_release_tpu.avatar.model import forward_frame, total_loss
-from avatar_fixture import AvatarSetup
+from avatar_fixture import AvatarSetup, forward_frame_program
+from fast_compile import fast_jit
 
 TRAIN_LOSS_KEYS = {
     "rgb_human", "ssim_human", "lpips_human", "rgb_face", "rgb_human_rand_bg",
@@ -29,32 +30,45 @@ def setup():
     return AvatarSetup()
 
 
-def _fwd(s, mode="train", fit_pose=False, offset=None, trainables=None):
-    return forward_frame(
-        trainables if trainables is not None else s.trainables,
-        s.scene_state.aux,
-        s.buffers,
-        s.prior,
-        s.statics,
-        s.id_info,
-        s.lpips,
-        s.face_texture,
-        s.face_texture_mask,
-        s.init_joint_offset,
-        s.frame_data[0],
-        jnp.asarray([0.3, 0.5, 0.7]),
-        s.cfg,
+def _fwd(s, mode="train", fit_pose=False, cfg=None):
+    return forward_frame_program(
+        *s.forward_inputs([0.3, 0.5, 0.7]),
+        s.cfg if cfg is None else cfg,
         is_warmup=True,
         mode=mode,
         fit_pose_to_test=fit_pose,
         settings=s.settings,
-        scene_mean2d_offset=offset,
     )
 
 
+def _loss(trainables, offset, *inputs, **kw):
+    """The total train loss of forward_frame(trainables, *inputs)."""
+    out = forward_frame(trainables, *inputs, scene_mean2d_offset=offset, **kw)
+    return total_loss(out.losses)
+
+
+# d(loss)/d(trainables, offset) as one program
+_loss_grads = fast_jit(
+    jax.grad(_loss, argnums=(0, 1)),
+    static_argnames=("cfg", "is_warmup", "mode", "settings"),
+)
+
+
+def _grads(s, offset=None):
+    trainables, *inputs = s.forward_inputs([0.3, 0.5, 0.7])
+    return _loss_grads(trainables, offset, *inputs, cfg=s.cfg, is_warmup=True,
+                       mode="train", settings=s.settings)
+
+
+@pytest.fixture(scope="module")
+def train_out(setup):
+    """The train-mode forward that several tests read."""
+    return _fwd(setup)
+
+
 class TestForward:
-    def test_train_losses_complete_and_finite(self, setup):
-        out = _fwd(setup)
+    def test_train_losses_complete_and_finite(self, train_out):
+        out = train_out
         assert set(out.losses.keys()) == TRAIN_LOSS_KEYS
         for k, v in out.losses.items():
             assert np.isfinite(float(v)), k
@@ -81,13 +95,7 @@ class TestForward:
         assert out.losses == {}
 
     def test_grads_reach_all_trainables(self, setup):
-        s = setup
-
-        def loss_fn(tr):
-            out = _fwd(s, trainables=tr)
-            return total_loss(out.losses)
-
-        g = jax.grad(loss_fn)(s.trainables)
+        g, _ = _grads(setup)
         # scene branch is detached in scene_human renders but has its own
         # scene losses; human nets must get gradients; frame poses too
         assert float(jnp.abs(g.scene.mean).sum()) > 0
@@ -101,15 +109,9 @@ class TestForward:
             assert np.isfinite(np.asarray(w)).all()
 
     def test_scene_mean2d_grad_for_densify(self, setup):
-        s = setup
-        C = s.scene_state.capacity
+        C = setup.scene_state.capacity
         offset = jnp.zeros((C, 2))
-
-        def loss_fn(off):
-            out = _fwd(s, offset=off)
-            return total_loss(out.losses)
-
-        g = jax.grad(loss_fn)(offset)
+        _, g = _grads(setup, offset)
         assert g.shape == (C, 2)
         assert np.isfinite(np.asarray(g)).all()
         # some live gaussians must receive screen-space gradient
@@ -134,23 +136,18 @@ class TestForward:
         assert l0 != l1  # different frames -> different loss
 
 
-def test_face_window_render_matches_full(setup):
+def test_face_window_render_matches_full(setup, train_out):
     """The static face-render window (AvatarConfig.face_render_h/w) must be
     an EXACT optimization: with a window that covers the projected face,
     every loss matches the full-frame mesh render bit-for-bit-ish."""
     import dataclasses
 
     s = setup
-    out_full = _fwd(s)
+    out_full = train_out
     cfg_win = dataclasses.replace(
         s.cfg, face_render_h=s.H - 8, face_render_w=s.W - 16
     )
-    out_win = forward_frame(
-        s.trainables, s.scene_state.aux, s.buffers, s.prior, s.statics,
-        s.id_info, s.lpips, s.face_texture, s.face_texture_mask,
-        s.init_joint_offset, s.frame_data[0], jnp.asarray([0.3, 0.5, 0.7]),
-        cfg_win, is_warmup=True, mode="train", settings=s.settings,
-    )
+    out_win = _fwd(s, cfg=cfg_win)
     for k in out_full.losses:
         np.testing.assert_allclose(
             float(out_win.losses[k]), float(out_full.losses[k]),

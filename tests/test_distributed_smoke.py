@@ -14,6 +14,7 @@ import os.path as osp
 import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -31,6 +32,8 @@ def _free_port() -> int:
 
 
 def _spawn_workers(stage: str, timeout: float):
+    """Runs the two workers of ``stage``; both must end within ``timeout``
+    seconds of their start, one deadline for the pair."""
     coord = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ)
     env.pop("JAX_PLATFORMS", None)
@@ -48,14 +51,15 @@ def _spawn_workers(stage: str, timeout: float):
         )
         for i in range(2)
     ]
+    deadline = time.monotonic() + timeout
     outs = []
     for p in procs:
         try:
-            out, err = p.communicate(timeout=timeout)
+            out, err = p.communicate(timeout=max(0.0, deadline - time.monotonic()))
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()
-            pytest.fail(f"distributed worker timed out after {timeout}s")
+            pytest.fail(f"distributed workers did not finish in {timeout}s")
         outs.append((p.returncode, out, err))
     if any(rc == 42 for rc, _, _ in outs):
         reasons = [o.strip() for rc, o, _ in outs if rc == 42]
@@ -74,7 +78,7 @@ def test_two_process_collectives_and_host_major_mesh():
     REAL processes: tile rows stay within a process (host-major layout),
     and the gaussian-sharded renderer's value/grads — all_to_all inside a
     process, grad psum across processes — match the single-device render."""
-    results = _spawn_workers("collectives", timeout=600)
+    results = _spawn_workers("collectives", timeout=140)
     assert len(results) == 2
     for r in results:
         assert r["rows_on_one_host"] is True
@@ -100,7 +104,7 @@ def test_two_process_dp_tile_train_step_matches_local():
     if len(jax.devices()) < 4:
         pytest.skip("needs the virtual >=4-device CPU mesh")
 
-    results = _spawn_workers("train", timeout=900)
+    results = _spawn_workers("train", timeout=380)
     assert len(results) == 2
     assert results[0]["finite"] and results[1]["finite"]
     np.testing.assert_allclose(
@@ -115,16 +119,11 @@ def test_two_process_dp_tile_train_step_matches_local():
     from exavatar_release_tpu.parallel import make_mesh
     from exavatar_release_tpu.parallel.dp_tile_train import dp_tile_train_step
     from exavatar_release_tpu.parallel.dp_train import shard_batch_to_mesh
-    from exavatar_release_tpu.train.loop import ModelBundle, init_train_state
+    from exavatar_release_tpu.train.loop import init_train_state
     from exavatar_release_tpu.train.optim import make_optimizer
 
     s = AvatarSetup(H=32, W=48, capacity=128, n_scene=60, n_frames=2)
-    bundle = ModelBundle(
-        buffers=s.buffers, prior=s.prior, statics=s.statics,
-        id_info=s.id_info, lpips=s.lpips, face_texture=s.face_texture,
-        face_texture_mask=s.face_texture_mask,
-        init_joint_offset=s.init_joint_offset,
-    )
+    bundle = s.bundle()
     opt = make_optimizer(s.trainables, s.cfg, 3.0, tot_itr=100)
     state = init_train_state(s.trainables, s.scene_state.aux, opt)
     batch = jax.tree.map(lambda *xs: jnp.stack(xs), *s.frame_data)

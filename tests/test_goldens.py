@@ -16,6 +16,7 @@ import pytest
 
 from exavatar_release_tpu.core.camera import Camera
 from exavatar_release_tpu.ops.rasterizer import RasterizeSettings, rasterize
+from fast_compile import fast_jit
 
 GOLDENS = sorted(
     glob.glob(osp.join(osp.dirname(osp.abspath(__file__)), "goldens", "*.npz"))
@@ -55,7 +56,8 @@ def test_matches_golden(path, settings):
     d = dict(np.load(path))
     cam, img_shape, args, live, bg = _setup(d)
 
-    out = rasterize(*args, live, cam, img_shape, bg, settings)
+    out = fast_jit(rasterize, static_argnums=(7, 9))(
+        *args, live, cam, img_shape, bg, settings)
     # oracle backend must reproduce its own frozen tensors near-exactly; the
     # Pallas kernels within log-space-compositing f32 tolerance (scene2/3
     # stress the 0.99 alpha clamp and the 1e-4 termination boundary, where
@@ -72,11 +74,11 @@ def test_matches_golden(path, settings):
     )
     np.testing.assert_allclose(np.asarray(out["radius"]), d["radius"], atol=0)
 
-    grads = jax.grad(
+    grads = fast_jit(jax.grad(
         lambda *a: _loss(rasterize(*a, live, cam, img_shape, bg, settings),
                          img_shape),
         argnums=(0, 1, 2, 3, 4),
-    )(*args)
+    ))(*args)
     names = ("g_means3d", "g_scales", "g_quats", "g_opacities", "g_rgbs")
     for g, name in zip(grads, names):
         ref = d[name]

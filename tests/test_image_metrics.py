@@ -15,6 +15,11 @@ from exavatar_release_tpu.ops.lpips import (
     lpips_distance,
     vgg16_features,
 )
+from fast_compile import fast_jit
+
+# one program each (eager JAX compiles every operation on its own)
+_init_lpips_random = fast_jit(init_lpips_random, static_argnums=(1,))
+_lpips_distance = fast_jit(lpips_distance)
 
 
 def _torch_ssim(img_out, img_target, mask=None, window_size=11):
@@ -114,9 +119,9 @@ class TestLPIPS:
         architecture given identical weights."""
         import torch
 
-        params = init_lpips_random(jax.random.PRNGKey(0), "vgg")
+        params = _init_lpips_random(jax.random.PRNGKey(0), "vgg")
         x = rng.uniform(-1, 1, (1, 3, 33, 37)).astype(np.float32)
-        taps = vgg16_features(params, jnp.asarray(x))
+        taps = fast_jit(vgg16_features)(params, jnp.asarray(x))
 
         # torch replica of torchvision vgg16.features tap structure
         layers = []
@@ -147,21 +152,21 @@ class TestLPIPS:
             np.testing.assert_allclose(np.asarray(tap), expect, atol=2e-4)
 
     def test_lpips_properties(self, rng):
-        params = init_lpips_random(jax.random.PRNGKey(1), "vgg")
+        params = _init_lpips_random(jax.random.PRNGKey(1), "vgg")
         a = jnp.asarray(rng.uniform(-1, 1, (3, 64, 64)).astype(np.float32))
         b = jnp.asarray(rng.uniform(-1, 1, (3, 64, 64)).astype(np.float32))
-        d_aa = float(lpips_distance(params, a, a))
-        d_ab = float(lpips_distance(params, a, b))
+        d_aa = float(_lpips_distance(params, a, a))
+        d_ab = float(_lpips_distance(params, a, b))
         assert d_aa < 1e-6
         assert d_ab > d_aa
-        g = jax.grad(lambda x: lpips_distance(params, x, b))(a)
+        g = fast_jit(jax.grad(lambda x: lpips_distance(params, x, b)))(a)
         assert np.isfinite(np.asarray(g)).all()
 
     def test_alex_variant(self, rng):
-        params = init_lpips_random(jax.random.PRNGKey(2), "alex")
+        params = _init_lpips_random(jax.random.PRNGKey(2), "alex")
         a = jnp.asarray(rng.uniform(-1, 1, (3, 64, 64)).astype(np.float32))
         b = a.at[:, 10:20, 10:20].add(0.5)
-        assert float(lpips_distance(params, a, b)) > 0
+        assert float(_lpips_distance(params, a, b)) > 0
 
 
 class TestResolveLPIPS:

@@ -11,18 +11,23 @@ import jax.numpy as jnp
 import pytest
 
 from exavatar_release_tpu.ops.rasterizer import RasterizeSettings, rasterize
+from fast_compile import fast_jit
 from tests.gs_scene import make_scene
 
 REF = RasterizeSettings(backend="ref", tile_h=8, tile_w=128, max_per_tile=64, chunk=32)
 PAL = RasterizeSettings(
     backend="pallas", tile_h=8, tile_w=128, max_per_tile=64, chunk=32, interpret=True
 )
+# one program per render (static: img_shape, settings)
+_rasterize = fast_jit(rasterize, static_argnums=(7, 9))
 
 
-def render(scene, settings, **over):
+def render(scene, settings, raster=_rasterize, **over):
+    """``raster``: ``rasterize`` itself where the render is part of a
+    larger program."""
     kw = dict(scene)
     kw.update(over)
-    return rasterize(
+    return raster(
         kw["means3d"],
         kw["scales"],
         kw["quats"],
@@ -115,8 +120,8 @@ def test_gradients_pallas_vs_oracle_autodiff(rng):
         scene["bg"],
         m2d_off,
     )
-    g_ref = jax.grad(_loss_fn(REF, scene, weights), argnums=tuple(range(7)))(*args)
-    g_pal = jax.grad(_loss_fn(PAL, scene, weights), argnums=tuple(range(7)))(*args)
+    g_ref = fast_jit(jax.grad(_loss_fn(REF, scene, weights), argnums=tuple(range(7))))(*args)
+    g_pal = fast_jit(jax.grad(_loss_fn(PAL, scene, weights), argnums=tuple(range(7))))(*args)
     names = ["means3d", "scales", "quats", "opacities", "rgbs", "bg", "mean2d_off"]
     for name, a, b in zip(names, g_ref, g_pal):
         a, b = np.asarray(a), np.asarray(b)
@@ -143,7 +148,8 @@ def test_gradients_finite_difference(rng):
         scene["bg"],
         m2d_off,
     ]
-    grads = jax.grad(f, argnums=(0, 3, 4))(*args)
+    grads = fast_jit(jax.grad(f, argnums=(0, 3, 4)))(*args)
+    f = fast_jit(f)
     # finite differences on a few coordinates of means3d, opacity, rgbs
     for argi, g in zip((0, 3, 4), grads):
         x = np.asarray(args[argi], np.float64)
@@ -181,7 +187,7 @@ def test_depth_ordering(rng):
     quats = jnp.tile(jnp.array([1.0, 0, 0, 0]), (2, 1))
     opac = jnp.array([[0.95], [0.95]])
     rgbs = jnp.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
-    out = rasterize(
+    out = _rasterize(
         means,
         scales,
         quats,
@@ -303,8 +309,8 @@ class TestBinningParity:
                 return (jnp.sum(r["img"] ** 2) + jnp.sum(r["mask"])
                         + jnp.sum(r["depth"])), r["img"]
 
-            (l, img), grads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3, 4),
-                                                 has_aux=True)(
+            (l, img), grads = fast_jit(jax.value_and_grad(
+                loss, argnums=(0, 1, 2, 3, 4), has_aux=True))(
                 sc["means3d"], sc["scales"], sc["quats"], sc["opacities"],
                 sc["rgbs"],
             )
@@ -441,16 +447,16 @@ class TestPairMajor:
 
         def make_loss(st):
             def loss(means, scales, opac, rgbs):
-                out = render(scene, st, means3d=means, scales=scales,
-                             opacities=opac, rgbs=rgbs)
+                out = render(scene, st, rasterize, means3d=means,
+                             scales=scales, opacities=opac, rgbs=rgbs)
                 return (jnp.sum(out["img"] ** 2) + jnp.sum(out["mask"])
                         + jnp.sum(out["depth"] * out["mask"]))
             return loss
 
         args = (scene["means3d"], scene["scales"], scene["opacities"],
                 scene["rgbs"])
-        g1 = jax.grad(make_loss(den), argnums=(0, 1, 2, 3))(*args)
-        g2 = jax.grad(make_loss(rag), argnums=(0, 1, 2, 3))(*args)
+        g1 = fast_jit(jax.grad(make_loss(den), argnums=(0, 1, 2, 3)))(*args)
+        g2 = fast_jit(jax.grad(make_loss(rag), argnums=(0, 1, 2, 3)))(*args)
         for a, b in zip(g1, g2):
             rms = float(jnp.sqrt(jnp.mean(a ** 2))) + 1e-12
             np.testing.assert_allclose(
@@ -486,10 +492,10 @@ class TestPairMajor:
         rag = RasterizeSettings(backend="pallas", pair_major=True, chunk=64)
 
         def loss(off):
-            out = render(scene, rag, mean2d_offset=off)
+            out = render(scene, rag, rasterize, mean2d_offset=off)
             return jnp.sum(out["img"] ** 2)
 
-        g = jax.grad(loss)(jnp.zeros((64, 2)))
+        g = fast_jit(jax.grad(loss))(jnp.zeros((64, 2)))
         assert np.isfinite(np.asarray(g)).all()
         assert float(jnp.abs(g).max()) > 0
 
@@ -514,16 +520,16 @@ def test_dense_deep_scene_parity(rng):
 
     def make_loss(st):
         def loss(means):
-            out = render(scene, st, means3d=means)
+            out = render(scene, st, rasterize, means3d=means)
             tot = (jnp.sum(out["img"]) + jnp.sum(out["mask"])
                    + 0.1 * jnp.sum(out["depth"]))
             return tot, out
         return loss
 
-    (_, o_ref), g_ref = jax.value_and_grad(
-        make_loss(st_ref), has_aux=True)(scene["means3d"])
-    (_, o_pal), g_pal = jax.value_and_grad(
-        make_loss(st_pal), has_aux=True)(scene["means3d"])
+    (_, o_ref), g_ref = fast_jit(jax.value_and_grad(
+        make_loss(st_ref), has_aux=True))(scene["means3d"])
+    (_, o_pal), g_pal = fast_jit(jax.value_and_grad(
+        make_loss(st_pal), has_aux=True))(scene["means3d"])
     np.testing.assert_allclose(
         np.asarray(o_pal["img"]), np.asarray(o_ref["img"]), atol=2e-3)
     np.testing.assert_allclose(

@@ -48,7 +48,8 @@ from exavatar_release_tpu_torch.avatar import scene as tsc
 from exavatar_release_tpu_torch.tools import convergence_demo as td
 from exavatar_release_tpu_torch.utils import jax_prng
 from exavatar_release_tpu_torch.avatar.human import human_forward as t_human_forward
-from torch_frame_fixture import _fields, _jitted_avatar_setup, _np_tree, compile_once
+from avatar_fixture import AvatarSetup
+from torch_frame_fixture import _fields, _np_tree, compile_once
 from torch_port_fixture import fast_jit
 
 TIE_D2 = 1e-6  # tests/test_torch_human.py
@@ -67,7 +68,7 @@ def jax_demo():
     # the heads' draw with XLA's default options, as the JAX demo runs it:
     # the port's draw is held to it bit for bit, and at optimisation level 0
     # the draw rounds differently
-    s = _jitted_avatar_setup(jax.jit(j_init_human, static_argnums=(3,)), focal=60.0, **KW)
+    s = AvatarSetup(init_human=jax.jit(j_init_human, static_argnums=(3,)), focal=60.0, **KW)
     raw = dict(scene=_fields(s.scene_state.params), aux=_fields(s.scene_state.aux),
                human=_fields(s.human_params), frames=_fields(s.param_frames), lpips=s.lpips)
     sn = s.trainables.human.scale_net

@@ -4,8 +4,8 @@ CPU for the whole file (tests/torch_dist_worker.py, one thread each, which
 imports the port only), held against the port's own single-process results,
 which tests/test_torch_parallel_raster.py and tests/test_torch_train_step.py
 hold against the JAX package. Compiling the JAX package's data-parallel
-programs here would cost minutes on the Tier-1 run's critical path, which
-tests/test_parallel.py already fills.
+programs here would cost minutes of the Tier-1 run, which
+tests/test_parallel_train.py already spends on them.
 
 * ``rasterize`` in context (``in_shard_axis``) at tile = 4 and 2, with and
   without ``gaussian_shard``, dense backend "ref" and pair-major, on
@@ -13,11 +13,13 @@ tests/test_parallel.py already fills.
   image, depth, mask and statistics against the local-mesh render of
   ``rasterize_sharded`` / ``rasterize_gaussian_sharded`` (1e-5, depth 1e-4,
   radius exact); the value and input gradients of loss / D summed over the
-  tile axis at rtol 1e-5 / atol 2e-4 (tests/test_parallel.py's bounds);
+  tile axis at rtol 1e-5 / atol 2e-4 (tests/test_parallel_gaussian.py's
+  bounds);
 * ``dp_train_step`` at data = 2 against one update on the mean of the two
   frames' ``loss_and_grads`` in this process: loss rtol 2e-4, trainables
-  rtol 2e-3 / atol 2.2e-3 (one Adam quantum, tests/test_parallel.py:440-455:
-  a near-zero gradient may flip sign under another summation order), and,
+  rtol 2e-3 / atol 2.2e-3 (one Adam quantum, tests/test_parallel_train.py's
+  ``test_combined_mesh_matches_dp_only``: a near-zero gradient may flip sign
+  under another summation order), and,
   since Adam's first step is blind to a gradient's scale, both moments
   (mu = (1 - b1) g from zero: a wrong 1/B or a sum taken twice shows) and
   the densification statistics at tests/test_torch_train_step.py's bounds;
@@ -30,7 +32,7 @@ tests/test_parallel.py already fills.
 * ``init_distributed`` a no-op alone, ``make_host_mesh`` keeping the tile
   rows within a node (and warning when they cannot be).
 
-The avatar is tests/test_parallel.py's (``AvatarSetup(H=32, W=48,
+The avatar is tests/test_parallel_train.py's (``AvatarSetup(H=32, W=48,
 capacity=128, n_scene=60, n_frames=2)``), built once here through
 tests/torch_frame_fixture.py and carried across as the port's objects; its
 renders use 8-row tiles, so that both bands of tile = 2 hold pixels.
@@ -64,7 +66,7 @@ from torch_frame_fixture import TwinFrame
 torch.set_num_threads(2)
 
 WORLD = 4
-TIMEOUT_S = 300
+TIMEOUT_S = 150
 RENDER_SETTINGS = {"ref": RasterizeSettings(backend="ref", tile_h=8, max_per_tile=256),
                    "pair_major": RasterizeSettings(tile_h=8, pair_major=True, chunk=128)}
 RENDER_KEYS = ("img", "mask", "depth", "mean2d")

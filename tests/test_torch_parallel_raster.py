@@ -11,11 +11,12 @@ package's on the same inputs:
   and on a non-divisible N and H: under the seam of tests/torch_xla_math.py
   (XLA's transcendentals for the port's), img and mask within 1e-5, depth
   1e-4, radius exact, mean2d 1e-4, the four input gradients at rtol 1e-5 /
-  atol 2e-4 (tests/test_parallel.py's bounds); on the port's own libm (the
+  atol 2e-4 (tests/test_parallel_tile.py's bounds); on the port's own libm (the
   ``torch_libm`` cases) the gradients at ``OWN_LIBM_GRAD`` (4x the old
   bounds; the worst seen was 1.9x them on an AVX-512 host); the per-rank
   exchange overflow at cap 2 equal to JAX's;
-* the exchange's deepest-first overflow (tests/test_parallel.py:245) against
+* the exchange's deepest-first overflow (tests/test_parallel_gaussian.py's
+  ``test_overflow_drops_deepest_first``) against
   JAX's ``_exchange_to_bands``;
 * the dense and pair-major kernel paths (the kernels' plain versions on the
   CPU) sharded over two bands on every tests/goldens scene, against the

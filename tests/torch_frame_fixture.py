@@ -7,14 +7,12 @@ The human's heads are brought into a trained avatar's range (cm offsets,
 tests/torch_port_fixture.py: random heads would emit meter-sized Gaussians.
 """
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
-import avatar_fixture
 from avatar_fixture import AvatarSetup, synthetic_face_mesh
 from exavatar_release_tpu.avatar.model import AvatarTrainables as JTrainables
 from exavatar_release_tpu_torch.avatar import convert
@@ -28,29 +26,9 @@ from exavatar_release_tpu_torch.models.smplx import build_prior as t_build_prior
 from exavatar_release_tpu_torch.models.smplx import synthetic_smplx_assets as t_assets
 from exavatar_release_tpu_torch.ops.rasterizer.api import RasterizeSettings as TSettings
 from exavatar_release_tpu_torch.train.loop import ModelBundle as TBundle
-from torch_port_fixture import FAST_COMPILE, _j_init_human, _last_layer, fast_jit
+from torch_port_fixture import FAST_COMPILE, _last_layer, fast_jit
 
 BG = np.asarray([0.3, 0.6, 0.9], np.float32)
-
-
-def _jitted_avatar_setup(init_human=_j_init_human, **kw):
-    """``AvatarSetup`` with its big eager initialisers jitted: run op by op
-    they cost ~400 small XLA compiles (30 s). ``init_human``: the jitted
-    initialiser of the human's weights."""
-    names = ("init_human", "init_lpips_random", "init_param_frames", "sc")
-    eager = {n: getattr(avatar_fixture, n) for n in names}
-    avatar_fixture.init_human = init_human
-    avatar_fixture.init_lpips_random = fast_jit(eager["init_lpips_random"], static_argnums=(1,))
-    # its numpy stacking needs concrete poses: they enter as constants
-    avatar_fixture.init_param_frames = lambda frames: fast_jit(
-        lambda: eager["init_param_frames"](frames))()
-    avatar_fixture.sc = types.SimpleNamespace(init_from_point_cloud=fast_jit(
-        eager["sc"].init_from_point_cloud, static_argnums=(4,)))
-    try:
-        return AvatarSetup(**kw)
-    finally:
-        for n, f in eager.items():
-            setattr(avatar_fixture, n, f)
 
 
 def compile_once(fn, *args):
@@ -72,7 +50,7 @@ class TwinFrame:
 
     def __init__(self, seed=0, lpips_net="alex", **kw):
         rng = np.random.default_rng(seed + 100)
-        j = self.j = _jitted_avatar_setup(seed=seed, lpips_net=lpips_net, **kw)
+        j = self.j = AvatarSetup(seed=seed, lpips_net=lpips_net, **kw)
         hp = j.human_params
         shape = hp.triplane.shape
         hp = hp.replace(
